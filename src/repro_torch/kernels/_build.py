@@ -1,0 +1,102 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``kernels/*/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, one library per source:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>_<hash>.so
+
+The libraries go to ``build/repro_torch_kernels/`` at the root of the
+checkout (listed in ``.gitignore``), named by a hash of the source, its
+headers and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  Sources that need building are compiled in parallel,
+one ``nvcc`` each.  A missing ``nvcc``, a failed build or a failed load
+raises: there is no fall-back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def sources() -> dict[str, Path]:
+    """Kernel name (the source's stem) -> its ``.cu`` file."""
+    return {p.stem: p for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (neither on PATH nor under CUDA_HOME "
+                       f"{cuda_home!r}); the CUDA kernels cannot be built")
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [src, *sorted(src.parent.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, float]:
+    """Compile the named kernels (default: all) whose library is missing,
+    one ``nvcc`` per source, all started together.  Returns the wall
+    seconds of each build that ran; raises with nvcc's output if any
+    failed."""
+    srcs = sources()
+    todo = {n: srcs[n] for n in (names or srcs)
+            if not _lib_path(srcs[n]).exists()}
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, src in todo.items():
+            lib = _lib_path(src)
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, lib)
+        seconds, failed = {}, []
+        for name, (proc, tmp, lib) in procs.items():
+            out, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            else:
+                os.replace(tmp, lib)   # atomic: readers never see a partial
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    src = sources().get(name)
+    if src is None:
+        raise KeyError(f"no kernel source named {name!r} under {KERNELS_DIR}")
+    build_all([name])
+    return ctypes.CDLL(str(_lib_path(src)))

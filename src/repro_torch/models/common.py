@@ -1,0 +1,166 @@
+"""Model substrate: the config dataclass and the parameter-tree builder.
+
+Own copy of ``repro.models.common`` (the JAX package's module imports
+JAX, so the port keeps its own).  ``ModelConfig`` has the same fields and
+the same derived sizes, so a config of one package compares equal, field
+by field, to the other's.  Parameters are nested dicts of tensors under
+the same ``/`` paths and drawn by the same laws as ``TreeBuilder.leaf``.
+The logical sharding axes are not carried yet: the port runs on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+Params = Any          # nested dict of tensors
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """Config dtype name ("bfloat16", "float32", ...) -> ``torch.dtype``."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype name {name!r}")
+    return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One config covers every assigned family via optional fields."""
+
+    arch_id: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    # attention flavor
+    window: int | None = None        # sliding-window size (Mixtral SWA, local)
+    rope_theta: float = 10000.0
+    # norms / activations
+    norm: str = "rms"                # rms | layernorm | nonparam
+    act: str = "swiglu"              # swiglu | gelu
+    # hybrid (recurrentgemma): layer pattern, e.g. ("rglru","rglru","attn")
+    block_pattern: tuple[str, ...] = ()
+    rglru_dim: int = 0               # recurrence width (0 -> d_model)
+    # vlm: insert a cross-attn layer every k self-attn layers
+    cross_attn_every: int = 0
+    n_frontend_tokens: int = 0       # stub modality tokens (vlm/audio)
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # kept for field-by-field equality with the reference config; the
+    # port's layer loop does not read them yet (remat arrives with the
+    # training slice, sharding with the multi-device one)
+    remat: str = "none"
+    scan_unroll: bool = False
+    batch_axes: tuple = ()
+    seq_axes: tuple = ()
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to 256 (pad ids are never targets)."""
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def param_torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def param_count(self) -> int:
+        """Exact count from the parameter tree built on the meta device."""
+        from repro_torch.models import zoo
+        tree = zoo.init(self, device="meta")
+        return int(sum(t.numel() for t in tree_leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# Param tree construction
+# ---------------------------------------------------------------------------
+
+class TreeBuilder:
+    """Collects parameters under '/'-separated paths.
+
+    Same laws as the reference ``TreeBuilder.leaf``: normal draws scaled
+    by 1/sqrt(fan_in) (fan_in = shape[-2], or shape[-1] for vectors) unless
+    a scale is given, zeros or ones on request.  Draws come from
+    ``generator``, which must live on ``device``.  On the ``meta`` device
+    nothing is drawn or allocated: only shapes and dtypes exist."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: torch.Generator | None):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.generator = generator
+        self.params: dict = {}
+
+    def leaf(self, path: str, shape: tuple[int, ...], *,
+             init: str = "normal", scale: float | None = None) -> None:
+        dtype = self.cfg.param_torch_dtype
+        if self.device.type == "meta":
+            arr = torch.empty(shape, dtype=dtype, device="meta")
+        elif init == "zeros":
+            arr = torch.zeros(shape, dtype=dtype, device=self.device)
+        elif init == "ones":
+            arr = torch.ones(shape, dtype=dtype, device=self.device)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+            arr = torch.randn(shape, generator=self.generator,
+                              dtype=torch.float32, device=self.device)
+            arr = arr.mul_(s).to(dtype)
+        node = self.params
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def build(self) -> Params:
+        return self.params
+
+
+def tree_leaves(tree: Params) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree: Params, path: str = "") -> Params:
+    """Apply ``fn(path, leaf)`` to every leaf, keeping the dict structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def cast_matrices(params: Params, dtype: torch.dtype) -> Params:
+    """Cast every weight except the norm scales to ``dtype``, once.
+
+    The forward pass casts each weight to the activation dtype where it
+    uses it (``w.to(dt)``, as the reference does with ``astype``), so a
+    tree cast once to that dtype gives the same numbers while the per-step
+    casts become no-ops.  Norm scales stay in their own dtype: the norms
+    read them in float32."""
+    return tree_map(lambda path, t: t if path.split("/")[-1].endswith("norm")
+                    else t.to(dtype), params)

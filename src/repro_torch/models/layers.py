@@ -1,0 +1,206 @@
+"""Shared layers of the dense transformer: norms, RoPE, attention, MLPs.
+
+Port of ``repro.models.layers`` (norms through MLPs, MoE excluded).  Each
+function keeps the reference's dtype behaviour: norms and RoPE compute in
+float32 and cast back, attention scores accumulate in float32 and the
+probabilities are cast to the activation dtype before the PV product.
+
+Prefill self-attention on CUDA goes through the hand-written flash
+attention kernel; everything else runs the dense math below.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())
+    return y.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor | None,
+               bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
+def nonparam_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm (no scale/bias)."""
+    return layer_norm(x, None, None, eps)
+
+
+def apply_norm(kind: str, x: torch.Tensor, p: dict | None) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, p["scale"] if p else None)
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"] if p else None,
+                          p.get("bias") if p else None)
+    if kind == "nonparam":
+        return nonparam_layer_norm(x)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (split halves, float32)
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, head_dim//2), float32."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., S, H, D). cos/sin: (..., S, D/2) broadcast over heads."""
+    dt = x.dtype
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal, sliding window)
+# ---------------------------------------------------------------------------
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B,S,K,D) -> (B,S,K*n_rep,D)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def _attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: int | None, q_offset: int,
+                     softcap: float) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    k = repeat_kv(k, h // kh)
+    v = repeat_kv(v, h // kh)
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# above this many score elements per (B,H) pair, the dense path runs in
+# q-chunks so the (B,H,Sq,Sk) transient stays bounded (as the reference)
+_CHUNK_THRESHOLD = 1 << 26
+_Q_CHUNK = 1024
+
+SelfAttention = Callable[..., torch.Tensor]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              q_offset: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """q: (B,Sq,H,D), k/v: (B,Sk,K,D) with H % K == 0.  Returns (B,Sq,H,D).
+
+    On CUDA, self-attention (Sq == Sk, ``q_offset`` 0, no softcap) runs
+    the flash attention kernel.  Everything else runs the dense math,
+    in q-chunks above ``_CHUNK_THRESHOLD`` score elements."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if q.is_cuda and sq == sk and q_offset == 0 and not softcap:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if sq * sk < _CHUNK_THRESHOLD or sq <= _Q_CHUNK or sq % _Q_CHUNK:
+        return _attention_dense(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, softcap=softcap)
+    outs = [_attention_dense(q[:, st:st + _Q_CHUNK], k, v, causal=causal,
+                             window=window, q_offset=q_offset + st,
+                             softcap=softcap)
+            for st in range(0, sq, _Q_CHUNK)]
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     window: int | None = None) -> torch.Tensor:
+    """Single-token decode: q (B,1,H,D), caches (B,S,K,D) with valid
+    prefix ``cache_len``.  Position of q is cache_len-1 (the newest token
+    is already written into the cache)."""
+    b, s, kh, d = k_cache.shape
+    h = q.shape[2]
+    kq = repeat_kv(k_cache, h // kh)
+    vq = repeat_kv(v_cache, h // kh)
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) * scale
+    kpos = torch.arange(s, device=q.device)[None, None, None, :]
+    n = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1, 1, 1)
+    valid = kpos < n
+    if window is not None:
+        valid &= kpos >= n - window
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vq)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    gate = x @ p["w_gate"].to(dt)
+    up = x @ p["w_up"].to(dt)
+    act = F.silu(gate.float()).to(dt) * up
+    return act @ p["w_down"].to(dt)
+
+
+def mlp_gelu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["w_up"].to(dt)
+    if "b_up" in p:
+        h = h + p["b_up"].to(dt)
+    h = F.gelu(h.float(), approximate="tanh").to(dt)
+    out = h @ p["w_down"].to(dt)
+    if "b_down" in p:
+        out = out + p["b_down"].to(dt)
+    return out
+
+
+def apply_mlp(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return mlp_swiglu(p, x) if kind == "swiglu" else mlp_gelu(p, x)

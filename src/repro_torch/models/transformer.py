@@ -1,0 +1,217 @@
+"""Decoder-only transformer LM, ``dense`` family (GQA, optional SWA).
+
+Port of ``repro.models.transformer`` for the dense configs (olmo-1b,
+granite-3-8b, codeqwen1.5-7b).  The reference scans over stacked layer
+params; here a Python loop indexes the same stacked ``layers/*`` tensors.
+
+Interfaces (as the reference's):
+  init(cfg, generator, device)               -> params
+  forward(cfg, params, batch)                -> (logits, aux)
+  init_cache(cfg, batch, max_len, device)    -> cache
+  prefill(cfg, params, tokens, max_len)      -> (logits_last, cache)
+  decode_step(cfg, params, cache, token, pos)-> (logits, cache)
+
+KV cache layout: k/v (L, S_max, B, K, hd) + "len" (a Python int).
+``decode_step`` writes the new (L, B, K, hd) row into the cache tensors IN
+PLACE (the reference returns a fresh cache); it returns the same dict with
+"len" advanced.
+
+``self_attn`` (forward/prefill) replaces the prefill self-attention with
+another function of the same signature, e.g. the kernel's plain version,
+so one run can hold the kernel path against it.  MoE is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models.common import ModelConfig, TreeBuilder
+
+
+def _no_moe(cfg: ModelConfig) -> None:
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MoE layers are not ported to repro_torch yet; "
+            "see ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, generator: torch.Generator | None,
+         device: torch.device) -> dict:
+    """Same paths, shapes and init laws as the reference's ``_build``."""
+    _no_moe(cfg)
+    tb = TreeBuilder(cfg, device, generator)
+    d, hd = cfg.d_model, cfg.hd
+    nl = cfg.n_layers
+    tb.leaf("embed/table", (cfg.padded_vocab, d), scale=0.02)
+    tb.leaf("layers/attn_norm", (nl, d), init="zeros")
+    tb.leaf("layers/mlp_norm", (nl, d), init="zeros")
+    tb.leaf("layers/wq", (nl, d, cfg.n_heads * hd))
+    tb.leaf("layers/wk", (nl, d, cfg.n_kv_heads * hd))
+    tb.leaf("layers/wv", (nl, d, cfg.n_kv_heads * hd))
+    tb.leaf("layers/wo", (nl, cfg.n_heads * hd, d))
+    tb.leaf("layers/w_gate", (nl, d, cfg.d_ff))
+    tb.leaf("layers/w_up", (nl, d, cfg.d_ff))
+    tb.leaf("layers/w_down", (nl, cfg.d_ff, d))
+    tb.leaf("final_norm", (d,), init="zeros")
+    if not cfg.tie_embeddings:
+        tb.leaf("unembed", (d, cfg.padded_vocab), scale=0.02)
+    return tb.build()
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor
+          ) -> torch.Tensor:
+    if cfg.norm == "nonparam":
+        return L.nonparam_layer_norm(x)
+    if cfg.norm == "layernorm":
+        return L.layer_norm(x, 1.0 + scale, None)
+    return L.rms_norm(x, scale)
+
+
+def _layer_params(params: dict, i: int) -> dict:
+    return {name: t[i] for name, t in params["layers"].items()}
+
+
+def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor
+             ) -> torch.Tensor:
+    dt = x.dtype
+    unemb = (params["embed"]["table"].to(dt).T if cfg.tie_embeddings
+             else params["unembed"].to(dt))
+    logits = x @ unemb
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor, self_attn: L.SelfAttention
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One transformer block. x: (B,S,D). Returns (x', k, v)."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    hd = cfg.hd
+    h = _norm(cfg, x, lp["attn_norm"])
+    q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
+    k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    o = self_attn(q, k, v, causal=True, window=cfg.window)
+    x = x + o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
+    h2 = _norm(cfg, x, lp["mlp_norm"])
+    x = x + L.apply_mlp(cfg.act, lp, h2)
+    return x, k, v
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict,
+            collect_cache: bool = False, last_only: bool = False, *,
+            self_attn: L.SelfAttention | None = None):
+    """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss[, kv]).
+
+    ``last_only``: unembed only the final position (prefill path)."""
+    _no_moe(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dt = cfg.activation_dtype
+    x = params["embed"]["table"][tokens].to(dt)
+    cos, sin = L.rope_angles(torch.arange(s, device=tokens.device), cfg.hd,
+                             cfg.rope_theta)
+    attn = self_attn or L.attention
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, k, v = _layer(cfg, _layer_params(params, i), x, cos, sin, attn)
+        if collect_cache:
+            ks.append(k.transpose(0, 1))
+            vs.append(v.transpose(0, 1))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _norm(cfg, x, params["final_norm"])
+    if last_only:
+        x = x[:, -1:]
+    logits = _unembed(cfg, params, x)
+    if collect_cache:
+        return logits, aux, (torch.stack(ks), torch.stack(vs))  # (L,S,B,K,hd)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device) -> dict:
+    shape = (cfg.n_layers, max_len, batch, cfg.n_kv_heads, cfg.hd)
+    dt = cfg.activation_dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device), "len": 0}
+
+
+def cache_max_len(cfg: ModelConfig, seq_len: int) -> int:
+    """SWA archs bound the live cache by the window size."""
+    if cfg.window is not None:
+        return min(seq_len, cfg.window)
+    return seq_len
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int, *, self_attn: L.SelfAttention | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Run the full prompt; build the cache. Returns (last-token logits,
+    cache).  If max_len < prompt length (SWA), keep the trailing window."""
+    s = tokens.shape[1]
+    logits, _, (kc, vc) = forward(cfg, params, {"tokens": tokens},
+                                  collect_cache=True, last_only=True,
+                                  self_attn=self_attn)
+    if max_len >= s:
+        pad = (0, 0, 0, 0, 0, 0, 0, max_len - s)   # pad dim 1 (S) at the end
+        kc, vc = F.pad(kc, pad), F.pad(vc, pad)
+    else:
+        kc = kc[:, s - max_len:].contiguous()
+        vc = vc[:, s - max_len:].contiguous()
+    return logits[:, -1], {"k": kc, "v": vc, "len": min(s, max_len)}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                token: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
+    """token: (B,) int; pos: absolute position (for RoPE).  Writes the new
+    k/v at slot len % max_len (ring buffer for SWA), in place."""
+    _no_moe(cfg)
+    b = token.shape[0]
+    dt = cfg.activation_dtype
+    hd = cfg.hd
+    max_len = cache["k"].shape[1]
+    n = int(cache["len"])
+    slot = n % max_len
+    n_valid = min(n + 1, max_len)
+    x = params["embed"]["table"][token].to(dt)[:, None]          # (B,1,D)
+    cos, sin = L.rope_angles(
+        torch.as_tensor(pos, device=token.device).reshape(1), hd,
+        cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        h = _norm(cfg, x, lp["attn_norm"])
+        q = (h @ lp["wq"].to(dt)).reshape(b, 1, cfg.n_heads, hd)
+        k = (h @ lp["wk"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)
+        v = (h @ lp["wv"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)
+        q = L.apply_rope(q, cos[None], sin[None])
+        k = L.apply_rope(k, cos[None], sin[None])
+        cache["k"][i, slot] = k[:, 0]        # in place: this layer's row
+        cache["v"][i, slot] = v[:, 0]
+        o = L.decode_attention(
+            q, cache["k"][i].transpose(0, 1), cache["v"][i].transpose(0, 1),
+            n_valid, window=None)   # ring buffer already bounds the window
+        x = x + o.reshape(b, 1, cfg.n_heads * hd) @ lp["wo"].to(dt)
+        h2 = _norm(cfg, x, lp["mlp_norm"])
+        x = x + L.apply_mlp(cfg.act, lp, h2)
+    x = _norm(cfg, x, params["final_norm"])
+    logits = _unembed(cfg, params, x)[:, 0]
+    cache["len"] = n + 1
+    return logits, cache

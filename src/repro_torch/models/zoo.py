@@ -1,0 +1,79 @@
+"""Family dispatch: the reference's uniform model interface, ``dense``
+family only so far (other families raise ``NotImplementedError``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig
+
+FAMILY_MODULES = {"dense": transformer}
+
+
+def module_for(cfg: ModelConfig):
+    if cfg.family not in FAMILY_MODULES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} ({cfg.arch_id}) is not ported to "
+            "repro_torch yet; see ROADMAP.md")
+    return FAMILY_MODULES[cfg.family]
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
+         device: str | torch.device = "cuda") -> dict:
+    """Random params drawn from ``generator``, which must live on
+    ``device``.  On the ``meta`` device no generator is needed and
+    nothing is allocated."""
+    dev = resolve_device(device)
+    if dev.type != "meta":
+        if generator is None:
+            raise ValueError("init: pass a torch.Generator on the target "
+                             "device (e.g. torch.Generator(device)"
+                             ".manual_seed(0))")
+        if generator.device.type != dev.type:
+            raise ValueError(f"init: generator on {generator.device}, "
+                             f"params on {dev}")
+    return module_for(cfg).init(cfg, generator, dev)
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, **kw):
+    """batch: tokens (B,S). Returns (logits, aux_loss)."""
+    return module_for(cfg).forward(cfg, params, batch, **kw)
+
+
+def cache_max_len(cfg: ModelConfig, seq_len: int) -> int:
+    return module_for(cfg).cache_max_len(cfg, seq_len)
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, **kw):
+    return module_for(cfg).prefill(cfg, params, batch["tokens"], max_len,
+                                   **kw)
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                token: torch.Tensor, pos):
+    return module_for(cfg).decode_step(cfg, params, cache, token, pos)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01):
+    """Next-token cross-entropy (+ MoE aux).  batch needs "tokens" and
+    "targets", optionally "mask".  The true-class logit comes from a
+    one-hot contraction, as in the reference."""
+    logits, aux = forward(cfg, params, batch)
+    targets = batch["targets"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    onehot = F.one_hot(targets.long(), lf.shape[-1]).to(lf.dtype)
+    true_logit = torch.einsum("bsv,bsv->bs", lf, onehot)
+    nll = lse - true_logit
+    mask = batch.get("mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        denom = nll.numel()
+    loss = torch.sum(nll) / denom
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

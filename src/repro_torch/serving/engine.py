@@ -1,0 +1,176 @@
+"""Batched serving engine: static-wave batching over a fixed slot set.
+
+Port of ``repro.serving.engine`` (``Request``, ``WaveStats``,
+``ServeEngine``).  Requests are served in WAVES of up to ``n_slots``: one
+batched prefill of the prompts LEFT-padded to the wave's longest, then
+lock-step decode until every slot is done.  Left-padding alone is not
+exact for shorter prompts (causal attention has no pad mask), so each
+distinct shorter length gets one exact, unpadded re-prefill that supplies
+its first token, as in the reference.  Decode runs eagerly, one
+``decode_step`` per lock-step token; the cache is updated in place.
+
+The engine follows its params' device.  ``prefill_calls`` counts model
+prefills (wave prefills and exact re-prefills), which is how many times
+each layer's prefill self-attention ran.  ``prefill_s``/``decode_s`` sum
+host wall time of the two phases; each phase ends in a copy of the
+chosen tokens to the host, which waits for the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.models import zoo
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray               # (S,) int32
+    max_new_tokens: int = 32
+    eos_id: int | None = None
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass
+class WaveStats:
+    n_requests: int
+    prompt_len: int
+    decode_steps: int
+    slot_token_capacity: int         # n_slots * decode_steps
+    useful_tokens: int
+    wall_s: float
+
+    @property
+    def slot_utilization(self) -> float:
+        return self.useful_tokens / max(self.slot_token_capacity, 1)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, *, n_slots: int,
+                 max_len: int, pad_id: int = 0):
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"]["table"].device
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.pad_id = pad_id
+        self.queue: deque[Request] = deque()
+        self.finished: list[Request] = []
+        self.stats: list[WaveStats] = []
+        self.prefill_calls = 0
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    # ------------------------------------------------------------------
+    def _prefill(self, prompts: np.ndarray, cache_len: int):
+        self.prefill_calls += 1
+        tokens = torch.as_tensor(prompts, dtype=torch.int64,
+                                 device=self.device)
+        return zoo.prefill(self.cfg, self.params, {"tokens": tokens},
+                           cache_len)
+
+    def _exact_short_logits(self, wave: list[Request], plen: int,
+                            tokens: np.ndarray) -> None:
+        """Overwrite ``tokens[i]`` for every request shorter than ``plen``
+        with the argmax of an exact unpadded prefill (one per distinct
+        shorter length)."""
+        by_len: dict[int, list[int]] = {}
+        for i, r in enumerate(wave):
+            # zero-token requests never emit the corrected token
+            if len(r.prompt) < plen and r.max_new_tokens > 0:
+                by_len.setdefault(len(r.prompt), []).append(i)
+        for length, slots in by_len.items():
+            sub = np.stack([wave[i].prompt for i in slots]).astype(np.int32)
+            # only the logits are kept: size the cache for this length
+            logits, _ = self._prefill(sub, zoo.cache_max_len(self.cfg,
+                                                             length))
+            exact = torch.argmax(logits, dim=-1).cpu().numpy()
+            for j, i in enumerate(slots):
+                tokens[i] = exact[j]
+
+    def _run_wave(self, wave: list[Request]) -> None:
+        t0 = time.perf_counter()
+        plen = max(len(r.prompt) for r in wave)
+        prompts = np.full((self.n_slots, plen), self.pad_id, np.int32)
+        for i, r in enumerate(wave):
+            prompts[i, plen - len(r.prompt):] = r.prompt   # left-pad
+        max_new = max(r.max_new_tokens for r in wave)
+        cache_len = zoo.cache_max_len(
+            self.cfg, min(self.max_len, plen + max_new))
+        logits, cache = self._prefill(prompts, cache_len)
+        tokens = torch.argmax(logits, dim=-1).cpu().numpy()   # writable
+        self._exact_short_logits(wave, plen, tokens)
+        for i, r in enumerate(wave):
+            if r.max_new_tokens <= 0:
+                # a request for 0 tokens gets 0 tokens
+                r.done = True
+                continue
+            r.output.append(int(tokens[i]))
+            if r.eos_id is not None and r.output[-1] == r.eos_id:
+                r.done = True
+        t1 = time.perf_counter()
+        self.prefill_s += t1 - t0
+
+        steps = 0
+        useful = sum(1 for r in wave if r.max_new_tokens > 0)
+        pos = plen
+        while steps < max_new - 1 and not all(
+                r.done or len(r.output) >= r.max_new_tokens for r in wave):
+            logits, cache = zoo.decode_step(
+                self.cfg, self.params, cache,
+                torch.as_tensor(tokens, dtype=torch.int64,
+                                device=self.device), pos)
+            tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+            for i, r in enumerate(wave):
+                if r.done or len(r.output) >= r.max_new_tokens:
+                    continue
+                r.output.append(int(tokens[i]))
+                useful += 1
+                if r.eos_id is not None and r.output[-1] == r.eos_id:
+                    r.done = True
+            steps += 1
+            pos += 1
+        self.decode_s += time.perf_counter() - t1
+
+        for r in wave:
+            r.done = True
+            self.finished.append(r)
+        # the prefill-produced token counts as one generation step, unless
+        # the whole wave asked for 0 tokens
+        gen_steps = steps + (1 if max_new > 0 else 0)
+        self.stats.append(WaveStats(
+            n_requests=len(wave), prompt_len=plen, decode_steps=gen_steps,
+            slot_token_capacity=self.n_slots * gen_steps,
+            useful_tokens=useful, wall_s=time.perf_counter() - t0))
+
+    # ------------------------------------------------------------------
+    def run(self) -> list[Request]:
+        while self.queue:
+            wave = [self.queue.popleft()
+                    for _ in range(min(self.n_slots, len(self.queue)))]
+            self._run_wave(wave)
+        return self.finished
+
+    @property
+    def mean_slot_utilization(self) -> float:
+        if not self.stats:
+            return 0.0
+        return sum(w.slot_utilization for w in self.stats) / len(self.stats)
+
+    def pending_waves(self) -> list[list[Request]]:
+        """The wave partition ``run()`` would execute, without consuming
+        the queue."""
+        reqs = list(self.queue)
+        return [reqs[i:i + self.n_slots]
+                for i in range(0, len(reqs), self.n_slots)]

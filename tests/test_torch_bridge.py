@@ -1,0 +1,120 @@
+"""Port <-> reference: parameter bridge, configs, parameter shapes."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import zoo as jax_zoo
+from repro.models.common import cast_tree
+from repro_torch import resolve_device
+from repro_torch.bridge import params_from_jax, params_to_numpy
+from repro_torch.configs import get_config
+from repro_torch.models import zoo
+from repro_torch.models.common import cast_matrices, tree_leaves
+
+ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b"]
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+@pytest.fixture(scope="module")
+def olmo_smoke_np():
+    cfg = jax_get_config("olmo-1b", smoke=True)
+    params = jax_zoo.init(cfg, jax.random.PRNGKey(0))
+    return {"float32": jax.tree.map(np.asarray, params),
+            "bfloat16": jax.tree.map(np.asarray,
+                                     cast_tree(params, jnp.bfloat16))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_round_trip_is_exact(olmo_smoke_np, dtype):
+    ref = olmo_smoke_np[dtype]
+    tparams = params_from_jax(ref, device="cpu")
+    assert set(_flat(tparams)) == set(_flat(ref))
+    for path, t in _flat(tparams).items():
+        assert t.dtype == getattr(torch, dtype), path
+        assert tuple(t.shape) == _flat(ref)[path].shape, path
+    back = _flat(params_to_numpy(tparams))
+    for path, a in _flat(ref).items():
+        assert back[path].dtype == a.dtype, path
+        # bit-for-bit: compare the raw bytes, bf16 included
+        assert back[path].tobytes() == a.tobytes(), path
+
+
+def test_bf16_bits_survive(olmo_smoke_np):
+    table = olmo_smoke_np["bfloat16"]["embed"]["table"]
+    assert table.dtype == ml_dtypes.bfloat16
+    t = params_from_jax({"t": table})["t"]
+    np.testing.assert_array_equal(t.float().numpy(), table.astype(np.float32))
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_equals_reference(arch, smoke):
+    mine, ref = get_config(arch, smoke), jax_get_config(arch, smoke)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert (mine.hd, mine.padded_vocab) == (ref.hd, ref.padded_vocab)
+    assert mine.activation_dtype == getattr(torch, ref.dtype)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_meta_shapes_equal_reference(arch):
+    cfg = get_config(arch)
+    mine = _flat(zoo.init(cfg, device="meta"))
+    ref = _flat(jax_zoo.abstract(jax_get_config(arch)))
+    assert set(mine) == set(ref)
+    for path, t in mine.items():
+        assert t.device.type == "meta", path
+        assert tuple(t.shape) == ref[path].shape, path
+        assert str(t.dtype).removeprefix("torch.") == str(ref[path].dtype)
+    assert cfg.param_count() == jax_get_config(arch).param_count()
+
+
+def test_init_laws_on_cpu():
+    cfg = get_config("olmo-1b", smoke=True)
+    gen = torch.Generator("cpu").manual_seed(0)
+    p = zoo.init(cfg, gen, device="cpu")
+    assert torch.count_nonzero(p["layers"]["attn_norm"]) == 0
+    table = p["embed"]["table"]
+    assert abs(table.std().item() - 0.02) < 0.002
+    wq = p["layers"]["wq"]           # fan_in = d_model
+    assert abs(wq.std().item() - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
+    same = zoo.init(cfg, torch.Generator("cpu").manual_seed(0), device="cpu")
+    assert torch.equal(same["layers"]["w_up"], p["layers"]["w_up"])
+
+
+def test_cast_matrices_keeps_norms():
+    cfg = get_config("granite-3-8b", smoke=True)
+    p = zoo.init(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
+    cast = cast_matrices(p, torch.bfloat16)
+    c = _flat(cast)
+    assert c["layers/attn_norm"].dtype == torch.float32
+    assert c["final_norm"].dtype == torch.float32
+    assert c["layers/wq"].dtype == torch.bfloat16
+    # only the norm scales keep their 4 bytes an element
+    n_norm = sum(t.numel() for k, t in c.items() if k.endswith("norm"))
+    assert sum(t.numel() * t.element_size() for t in tree_leaves(cast)) == \
+        2 * sum(t.numel() for t in tree_leaves(p)) + 2 * n_norm
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: the refusal path cannot be exercised")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.init(get_config("olmo-1b", smoke=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("mixtral-8x7b")

@@ -1,0 +1,78 @@
+"""The port on a CUDA card: the flash attention kernel against its plain
+version, and the serving path through the kernel.
+
+Every test here is marked ``cuda`` and skips without a card; the file
+imports no JAX, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.models import zoo
+from repro_torch.serving import Request, ServeEngine
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,window", [
+    (2, 512, 16, 16, 128, None),     # olmo-1b prefill heads
+    (1, 300, 32, 8, 128, None),      # GQA, ragged length
+    (1, 512, 8, 8, 128, 64),         # sliding window
+    (2, 100, 4, 4, 16, None),        # smoke head dim
+    (2, 77, 4, 2, 32, 16),
+    (1, 200, 8, 1, 64, None),        # MQA
+    (3, 1, 4, 2, 64, None),          # one token
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain(cuda_device, b, s, h, kh, d, window, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=cuda_device)
+               .to(dtype) for n in (h, kh, kh))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_non_contiguous_heads_are_read_through_strides(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn((2, 96, 3, 4, 64), generator=gen, device=cuda_device)
+    q, k, v = qkv.unbind(2)                  # (B,S,H,D) views, stride 3*H*D
+    out = flash_attention(q, k, v)
+    torch.testing.assert_close(out, attention_plain(q, k, v), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_serving_goes_through_the_kernel(cuda_device):
+    cfg = get_config("olmo-1b", smoke=True)
+    params = zoo.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                      device=cuda_device)
+    eng = ServeEngine(cfg, params, n_slots=2, max_len=32)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((9, 5, 7)):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n)
+                           .astype(np.int32), max_new_tokens=3))
+    before = flash_attention.launches
+    done = eng.run()
+    assert all(len(r.output) == 3 for r in done)
+    # waves (9,5) and (7): one wave prefill each + one re-prefill for 5
+    assert eng.prefill_calls == 3
+    assert flash_attention.launches - before == cfg.n_layers * 3
