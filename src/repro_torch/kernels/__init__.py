@@ -8,5 +8,6 @@ Each kernel ships as:
              launches; takes the plain version for CPU tensors only
   ref.py     the plain PyTorch version the kernel is held to
 
-Kernels: flash_attention (GQA/causal/SWA prefill self-attention).
+Kernels: flash_attention (GQA/causal/SWA prefill self-attention), rglru
+(the RG-LRU scan of recurrentgemma's recurrent blocks in prefill).
 """

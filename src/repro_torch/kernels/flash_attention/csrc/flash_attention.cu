@@ -18,15 +18,22 @@
 //  * bfloat16 (the serving path): tensor cores through mma.sync m16n8k16
 //    (bf16 in, fp32 accumulate).  Q, K and V tiles sit in shared memory as
 //    bf16 with rows padded by 16 bytes against bank conflicts; each warp
-//    owns 16 query rows, keeps its Q fragments, its 16 x 64 score tile, the
-//    row max and sum and its 16 x D output accumulator in registers, and
-//    turns the fp32 probabilities into bf16 A fragments in registers for
-//    the PV product (as the model path does; the Pallas kernel keeps them
-//    fp32, so the two differ at bf16 rounding, within 2e-2).
+//    owns 16 query rows, keeps its 16 x 64 score tile, the row max and sum
+//    and its 16 x D output accumulator in registers, and turns the fp32
+//    probabilities into bf16 A fragments in registers for the PV product
+//    (as the model path does; the Pallas kernel keeps them fp32, so the
+//    two differ at bf16 rounding, within 2e-2).  Up to D=128 the warp also
+//    keeps its Q fragments in registers.  At D=256 (recurrentgemma) the
+//    output accumulator alone takes 128 registers a thread (D/8 n-tiles x
+//    4) and the Q fragments would take 64 more, past the 255 limit: there
+//    each k-step reloads its 4 Q fragment registers from the shared Q tile
+//    instead, which keeps the kernel free of spills.
 //  * float32: scalar fp32 FMAs only, no TF32 and no tensor cores, so the
 //    fp32 path meets 2e-5 against the plain version.  Q (pre-scaled), K, V
 //    and the score tile sit in shared memory as fp32, the row statistics
-//    too; each thread owns 4 rows x D/8 columns of the output.
+//    too; each thread owns 4 rows x D/8 columns of the output.  At D=256
+//    that is 214.5 KB of shared memory, under the 227 KB a block may have,
+//    so one block runs per SM.
 //
 // What bounds it on an H100: at the olmo-1b prefill shape (B=4, S=512,
 // H=K=16, D=128, bf16) the roofline bound is memory (about 33.5 MB against
@@ -35,8 +42,8 @@
 // that bound: it relies on several blocks per SM to hide load latency.
 // TMA-fed tiles, wgmma and a producer warp are the later step.  At D=128
 // the fp32 tiles take about 113 KB and the bf16 ones 51 KB of shared
-// memory, above the 48 KB default, so each launch raises the dynamic
-// shared-memory limit first.
+// memory (at D=256, 214.5 KB and 99 KB), above the 48 KB default, so each
+// launch raises the dynamic shared-memory limit first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +65,8 @@ struct Layout {
       3 * BQ;
   static constexpr size_t bytes = floats * sizeof(float);
 };
+// the most dynamic shared memory a block may have on sm_90
+static_assert(Layout<256>::bytes <= 232448, "fp32 tiles at D=256 too large");
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMA kernel
@@ -263,6 +272,19 @@ __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// the A fragment of k-step kk for rows [r0, r0+16) of a padded shared tile
+template <int D>
+__device__ __forceinline__ void load_a_frag(uint32_t a[4], const uint16_t* s,
+                                            int r0, int kk) {
+  constexpr int RS = MmaLayout<D>::RS;
+  const int lane = threadIdx.x % 32;
+  const uint16_t* p = s + (r0 + (lane >> 2)) * RS + kk * 16 + (lane & 3) * 2;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * RS);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * RS + 8);
+}
+
 // rows [r0, r0+64) of a (S, D) bf16 matrix with row stride `rs` into a
 // padded shared tile; rows >= S become zeros.  16-byte loads.
 template <int D>
@@ -311,16 +333,14 @@ __global__ void __launch_bounds__(THREADS)
 
   load_tile<D>(sQ, q + b * qsb + h * qsh, qss, q0, S);
   __syncthreads();
-  // this warp's 16 query rows as A fragments, kept in registers
+  // this warp's 16 query rows as A fragments: kept in registers up to
+  // D=128, reloaded from sQ at each k-step above (see the note at the top)
   const int r0 = warp * 16;
-  uint32_t qf[KSTEPS][4];
+  constexpr bool Q_IN_REGS = D <= 128;
+  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const uint16_t* p = sQ + (r0 + g) * RS + kk * 16 + t4 * 2;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * RS);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * RS + 8);
+    for (int kk = 0; kk < KSTEPS; ++kk) load_a_frag<D>(qf[kk], sQ, r0, kk);
   }
 
   float oacc[NT_O][4];
@@ -351,12 +371,20 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        load_a_frag<D>(qa, sQ, r0, kk);
+      }
 #pragma unroll
       for (int n = 0; n < NT_S; ++n) {
         const uint16_t* p = sK + (n * 8 + g) * RS + kk * 16 + t4 * 2;
-        mma_16816(sacc[n], qf[kk], ld32(p), ld32(p + 8));
+        mma_16816(sacc[n], qa, ld32(p), ld32(p + 8));
       }
+    }
 
     // mask, scale into the log2 domain, row max over the quad
     float mx[2] = {NEG_INF, NEG_INF};
@@ -507,6 +535,9 @@ int repro_flash_attention_fwd(
                             window, scale, s));
     case 128:
       return int(launch<128>(dtype, q, k, v, o, B, S, H, KH, st, causal,
+                             window, scale, s));
+    case 256:
+      return int(launch<256>(dtype, q, k, v, o, B, S, H, KH, st, causal,
                              window, scale, s));
     default:
       return int(cudaErrorInvalidValue);

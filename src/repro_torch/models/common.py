@@ -154,13 +154,23 @@ def tree_map(fn, tree: Params, path: str = "") -> Params:
     return fn(path, tree)
 
 
+# leaves the forward pass reads in float32, never in the activation dtype
+_FLOAT32_LEAVES = ("log_a",)      # the RG-LRU decay rate (softplus in fp32)
+
+
 def cast_matrices(params: Params, dtype: torch.dtype) -> Params:
-    """Cast every weight except the norm scales to ``dtype``, once.
+    """Cast every weight except the norm scales and ``log_a`` to
+    ``dtype``, once.
 
     The forward pass casts each weight to the activation dtype where it
     uses it (``w.to(dt)``, as the reference does with ``astype``), so a
     tree cast once to that dtype gives the same numbers while the per-step
-    casts become no-ops.  Norm scales stay in their own dtype: the norms
-    read them in float32."""
-    return tree_map(lambda path, t: t if path.split("/")[-1].endswith("norm")
-                    else t.to(dtype), params)
+    casts become no-ops.  Norm scales and the RG-LRU's ``log_a`` stay in
+    their own dtype: the model reads them in float32, and a bf16 copy of
+    ``log_a`` would move every decay rate."""
+    def cast(path: str, t: torch.Tensor) -> torch.Tensor:
+        name = path.split("/")[-1]
+        if name.endswith("norm") or name in _FLOAT32_LEAVES:
+            return t
+        return t.to(dtype)
+    return tree_map(cast, params)

@@ -1,12 +1,15 @@
-"""Shared layers of the dense transformer: norms, RoPE, attention, MLPs.
+"""Shared layers: norms, RoPE, attention, MLPs, the RG-LRU recurrence.
 
-Port of ``repro.models.layers`` (norms through MLPs, MoE excluded).  Each
-function keeps the reference's dtype behaviour: norms and RoPE compute in
-float32 and cast back, attention scores accumulate in float32 and the
-probabilities are cast to the activation dtype before the PV product.
+Port of ``repro.models.layers`` (norms through MLPs, and the RG-LRU
+functions; MoE and RWKV6 excluded).  Each function keeps the reference's
+dtype behaviour: norms and RoPE compute in float32 and cast back,
+attention scores accumulate in float32 and the probabilities are cast to
+the activation dtype before the PV product; the RG-LRU gates are float32
+sigmoids and its carry is float32.
 
-Prefill self-attention on CUDA goes through the hand-written flash
-attention kernel; everything else runs the dense math below.
+On CUDA, prefill self-attention goes through the hand-written flash
+attention kernel and the prefill RG-LRU scan through the hand-written
+RG-LRU kernel; everything else runs the dense math below.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru import rglru, rglru_plain
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -204,3 +208,64 @@ def mlp_gelu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     return mlp_swiglu(p, x) if kind == "swiglu" else mlp_gelu(p, x)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+RglruScan = Callable[[torch.Tensor, torch.Tensor],
+                    tuple[torch.Tensor, torch.Tensor]]
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor | None = None, *,
+               scan: RglruScan | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + sqrt(1-a_t^2) * x_t, elementwise.
+
+    a, x: (B,S,R) with a in (0,1).  Returns (h (B,S,R) in x's dtype,
+    h_last (B,R) float32).  From h = 0 (prefill) the scan runs ``scan``,
+    by default the RG-LRU wrapper (the kernel on CUDA, the exact
+    sequential scan on the CPU); with a carried ``h0`` (decode) it runs
+    the plain scan from ``h0``, which is the reference's fold of ``h0``
+    into step 0.  The reference's associative scan sums in another order:
+    the two agree to about 1e-5 in float32."""
+    if h0 is not None:
+        return rglru_plain(a, x, h0)
+    return (scan or rglru)(a, x)
+
+
+def _rglru_decay(p: dict, x: torch.Tensor, c: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 input gate and the float32 decay a of the RG-LRU."""
+    dt = x.dtype
+    gate_x = torch.sigmoid((x @ p["w_gx"].to(dt)).float())
+    gate_a = torch.sigmoid((x @ p["w_ga"].to(dt)).float())
+    log_a = -c * gate_a * F.softplus(p["log_a"].float())
+    return gate_x, torch.exp(log_a)
+
+
+def rglru_block(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None,
+                c: float = 8.0, *, scan: RglruScan | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Griffin's recurrent block core: input/recurrence gates + RG-LRU.
+
+    x: (B,S,R).  p: log_a (R,) float32, w_gx/w_ga (R,R).  The decay a is
+    cast to x's dtype before the scan and the gated input is rounded to
+    it, as in the reference."""
+    dt = x.dtype
+    gate_x, a = _rglru_decay(p, x, c)
+    gated_x = (x.float() * gate_x).to(dt)
+    return rglru_scan(a.to(dt), gated_x, h0, scan=scan)
+
+
+def rglru_step(p: dict, x_t: torch.Tensor, h_prev: torch.Tensor,
+               c: float = 8.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step: x_t (B,R), h_prev (B,R) -> (out, h_new), with the
+    decay and gated input kept in float32 (the reference's step form)."""
+    gate_x, a = _rglru_decay(p, x_t, c)
+    xg = x_t.float() * gate_x
+    h = a * h_prev.float() + torch.sqrt(
+        torch.clamp(1.0 - a * a, min=1e-12)) * xg
+    return h.to(x_t.dtype), h

@@ -81,7 +81,7 @@ def _layer_params(params: dict, i: int) -> dict:
     return {name: t[i] for name, t in params["layers"].items()}
 
 
-def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor
+def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor
              ) -> torch.Tensor:
     dt = x.dtype
     unemb = (params["embed"]["table"].to(dt).T if cfg.tie_embeddings
@@ -136,7 +136,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     x = _norm(cfg, x, params["final_norm"])
     if last_only:
         x = x[:, -1:]
-    logits = _unembed(cfg, params, x)
+    logits = unembed(cfg, params, x)
     if collect_cache:
         return logits, aux, (torch.stack(ks), torch.stack(vs))  # (L,S,B,K,hd)
     return logits, aux
@@ -212,6 +212,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         h2 = _norm(cfg, x, lp["mlp_norm"])
         x = x + L.apply_mlp(cfg.act, lp, h2)
     x = _norm(cfg, x, params["final_norm"])
-    logits = _unembed(cfg, params, x)[:, 0]
+    logits = unembed(cfg, params, x)[:, 0]
     cache["len"] = n + 1
     return logits, cache

@@ -1,5 +1,6 @@
-"""Family dispatch: the reference's uniform model interface, ``dense``
-family only so far (other families raise ``NotImplementedError``)."""
+"""Family dispatch: the reference's uniform model interface, for the
+``dense`` and ``hybrid`` families so far (other families raise
+``NotImplementedError``)."""
 
 from __future__ import annotations
 
@@ -7,10 +8,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import recurrentgemma, transformer
 from repro_torch.models.common import ModelConfig
 
-FAMILY_MODULES = {"dense": transformer}
+FAMILY_MODULES = {"dense": transformer, "hybrid": recurrentgemma}
 
 
 def module_for(cfg: ModelConfig):

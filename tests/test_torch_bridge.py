@@ -18,7 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import zoo
 from repro_torch.models.common import cast_matrices, tree_leaves
 
-ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b"]
+ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b", "recurrentgemma-2b"]
 
 
 def _flat(tree, prefix=""):

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the flash attention kernel against its plain
-version, and the serving path through the kernel.
+"""The port on a CUDA card: the flash attention and RG-LRU kernels
+against their plain versions, and the serving paths through the kernels.
 
 Every test here is marked ``cuda`` and skips without a card; the file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -13,10 +13,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels.rglru import rglru, rglru_plain
 from repro_torch.models import zoo
 from repro_torch.serving import Request, ServeEngine
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RGLRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.cuda
 
@@ -37,6 +39,8 @@ def cuda_device():
     (2, 77, 4, 2, 32, 16),
     (1, 200, 8, 1, 64, None),        # MQA
     (3, 1, 4, 2, 64, None),          # one token
+    (1, 300, 10, 1, 256, 128),       # recurrentgemma heads, window
+    (2, 64, 4, 1, 256, None),        # head dim 256, GQA 4/1
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda_device, b, s, h, kh, d, window, dtype):
@@ -76,3 +80,49 @@ def test_serving_goes_through_the_kernel(cuda_device):
     # waves (9,5) and (7): one wave prefill each + one re-prefill for 5
     assert eng.prefill_calls == 3
     assert flash_attention.launches - before == cfg.n_layers * 3
+
+
+@pytest.mark.parametrize("b,s,r,a_const", [
+    (2, 128, 64, None),
+    (1, 37, 130, None),      # ragged S, R not a multiple of the block
+    (3, 1, 32, None),        # one step
+    (1, 64, 32, 1e-6),       # extreme decay
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_matches_plain(cuda_device, b, s, r, a_const, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if a_const is None:       # a ~ U(0.001, 0.9995)
+        a = 0.001 + 0.9985 * torch.rand((b, s, r), generator=gen,
+                                        device=cuda_device)
+    else:
+        a = torch.full((b, s, r), a_const, device=cuda_device)
+    a = a.to(dtype)
+    x = torch.randn((b, s, r), generator=gen, device=cuda_device).to(dtype)
+    before = rglru.launches
+    h, h_last = rglru(a, x)
+    torch.cuda.synchronize()
+    assert rglru.launches == before + 1
+    assert h.dtype == dtype and h_last.dtype == torch.float32
+    ref, ref_last = rglru_plain(a, x)
+    tol = RGLRU_TOL[dtype]
+    torch.testing.assert_close(h.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h_last, ref_last, atol=tol, rtol=tol)
+
+
+def test_recurrentgemma_serving_goes_through_both_kernels(cuda_device):
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    params = zoo.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                      device=cuda_device)
+    eng = ServeEngine(cfg, params, n_slots=2, max_len=32)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((11, 6, 9)):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n)
+                           .astype(np.int32), max_new_tokens=3))
+    before = (rglru.launches, flash_attention.launches)
+    done = eng.run()
+    assert all(len(r.output) == 3 for r in done)
+    # waves (11,6) and (9): one wave prefill each + one re-prefill for 6;
+    # per prefill 4 recurrent blocks and 1 attention block, none in decode
+    assert eng.prefill_calls == 3
+    assert rglru.launches - before[0] == 4 * 3
+    assert flash_attention.launches - before[1] == 1 * 3

@@ -92,6 +92,15 @@ def test_ragged_length_matches_oracle(s, window):
                   "float32")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_gqa_matches_oracle(dtype):
+    """recurrentgemma's head dim, GQA 4/1, a window shorter than S."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(1, 64, 4, 1, 256, dtype)
+    out = flash_attention(tq, tk, tv, causal=True, window=24)
+    _assert_close(out, attention_ref(jq, jk, jv, causal=True, window=24),
+                  dtype)
+
+
 def test_cpu_path_does_not_count_launches():
     _, (tq, tk, tv) = _inputs(1, 64, 2, 2, 32)
     before = flash_attention.launches
