@@ -1,12 +1,13 @@
 """Config registry of the port: own copies of the reference's configs
-that the port serves (dense and hybrid), each with ``CONFIG`` (full width)
-and ``SMOKE`` exactly as in ``repro.configs``.  The other architectures
-wait for their slice of the port (ROADMAP.md, "Modules to port")."""
+that the port serves (dense, hybrid and ssm), each with ``CONFIG`` (full
+width) and ``SMOKE`` exactly as in ``repro.configs``.  The other
+architectures wait for their slice of the port (ROADMAP.md, "Modules to
+port")."""
 
 from __future__ import annotations
 
 from repro_torch.configs import (codeqwen1_5_7b, granite_3_8b, olmo_1b,
-                                recurrentgemma_2b)
+                                recurrentgemma_2b, rwkv6_1_6b)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -14,11 +15,12 @@ _MODULES = {
     "codeqwen1.5-7b": codeqwen1_5_7b,
     "olmo-1b": olmo_1b,
     "recurrentgemma-2b": recurrentgemma_2b,
+    "rwkv6-1.6b": rwkv6_1_6b,
 }
 
 # the reference's architectures that this port does not serve yet
 _NOT_PORTED = ("llama3-405b", "llama4-scout-17b-a16e", "mixtral-8x7b",
-               "rwkv6-1.6b", "llama-3.2-vision-11b", "whisper-small")
+               "llama-3.2-vision-11b", "whisper-small")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -9,5 +9,7 @@ Each kernel ships as:
   ref.py     the plain PyTorch version the kernel is held to
 
 Kernels: flash_attention (GQA/causal/SWA prefill self-attention), rglru
-(the RG-LRU scan of recurrentgemma's recurrent blocks in prefill).
+(the RG-LRU scan of recurrentgemma's recurrent blocks in prefill), rwkv6
+(``wkv6``, the WKV6 matrix-state recurrence of rwkv6's time-mix blocks in
+prefill).
 """

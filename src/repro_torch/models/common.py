@@ -155,19 +155,26 @@ def tree_map(fn, tree: Params, path: str = "") -> Params:
 
 
 # leaves the forward pass reads in float32, never in the activation dtype
-_FLOAT32_LEAVES = ("log_a",)      # the RG-LRU decay rate (softplus in fp32)
+# (the reference reads each with ``.astype(float32)``)
+_FLOAT32_LEAVES = (
+    "log_a",      # the RG-LRU decay rate (softplus in fp32)
+    "w0",         # RWKV6 decay bias and
+    "w_lora_b",   # decay LoRA (exp(-exp(w0 + lora)) in fp32)
+    "u",          # RWKV6 current-token bonus (the WKV6 kernel takes fp32)
+    "ln_x",       # RWKV6 group-norm scale (applied in fp32)
+)
 
 
 def cast_matrices(params: Params, dtype: torch.dtype) -> Params:
-    """Cast every weight except the norm scales and ``log_a`` to
-    ``dtype``, once.
+    """Cast every weight except the norm scales and ``_FLOAT32_LEAVES``
+    to ``dtype``, once.
 
     The forward pass casts each weight to the activation dtype where it
     uses it (``w.to(dt)``, as the reference does with ``astype``), so a
     tree cast once to that dtype gives the same numbers while the per-step
-    casts become no-ops.  Norm scales and the RG-LRU's ``log_a`` stay in
+    casts become no-ops.  Norm scales and ``_FLOAT32_LEAVES`` stay in
     their own dtype: the model reads them in float32, and a bf16 copy of
-    ``log_a`` would move every decay rate."""
+    ``log_a``, ``w0`` or ``w_lora_b`` would move every decay rate."""
     def cast(path: str, t: torch.Tensor) -> torch.Tensor:
         name = path.split("/")[-1]
         if name.endswith("norm") or name in _FLOAT32_LEAVES:

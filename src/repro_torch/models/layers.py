@@ -1,7 +1,8 @@
-"""Shared layers: norms, RoPE, attention, MLPs, the RG-LRU recurrence.
+"""Shared layers: norms, RoPE, attention, MLPs, the RG-LRU and RWKV6
+recurrences.
 
-Port of ``repro.models.layers`` (norms through MLPs, and the RG-LRU
-functions; MoE and RWKV6 excluded).  Each function keeps the reference's
+Port of ``repro.models.layers`` (norms through MLPs, the RG-LRU functions
+and the RWKV6 decode step; MoE excluded).  Each function keeps the reference's
 dtype behaviour: norms and RoPE compute in float32 and cast back,
 attention scores accumulate in float32 and the probabilities are cast to
 the activation dtype before the PV product; the RG-LRU gates are float32
@@ -9,7 +10,9 @@ sigmoids and its carry is float32.
 
 On CUDA, prefill self-attention goes through the hand-written flash
 attention kernel and the prefill RG-LRU scan through the hand-written
-RG-LRU kernel; everything else runs the dense math below.
+RG-LRU kernel; everything else runs the dense math below.  The RWKV6
+prefill recurrence goes to the WKV6 kernel from ``models/rwkv6.py``; its
+decode step is here.
 """
 
 from __future__ import annotations
@@ -269,3 +272,19 @@ def rglru_step(p: dict, x_t: torch.Tensor, h_prev: torch.Tensor,
     h = a * h_prev.float() + torch.sqrt(
         torch.clamp(1.0 - a * a, min=1e-12)) * xg
     return h.to(x_t.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 decode step (prefill runs the WKV6 kernel or its plain version)
+# ---------------------------------------------------------------------------
+
+def rwkv6_step(r_t: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor,
+               w_t: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step. r_t..w_t: (B,H,D); state (B,H,D,D) float32."""
+    rf, kf, vf, wf = (t.float() for t in (r_t, k_t, v_t, w_t))
+    uf = u.float()
+    kv = torch.einsum("bhd,bhv->bhdv", kf, vf)
+    out = torch.einsum("bhd,bhdv->bhv", rf, state + uf[None, :, :, None] * kv)
+    new_state = state * wf[..., None] + kv
+    return out.to(r_t.dtype), new_state

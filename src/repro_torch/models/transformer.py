@@ -77,7 +77,8 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor
     return L.rms_norm(x, scale)
 
 
-def _layer_params(params: dict, i: int) -> dict:
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked ``layers/*`` params."""
     return {name: t[i] for name, t in params["layers"].items()}
 
 
@@ -128,7 +129,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     attn = self_attn or L.attention
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _layer(cfg, _layer_params(params, i), x, cos, sin, attn)
+        x, k, v = _layer(cfg, layer_params(params, i), x, cos, sin, attn)
         if collect_cache:
             ks.append(k.transpose(0, 1))
             vs.append(v.transpose(0, 1))
@@ -196,7 +197,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         torch.as_tensor(pos, device=token.device).reshape(1), hd,
         cfg.rope_theta)
     for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+        lp = layer_params(params, i)
         h = _norm(cfg, x, lp["attn_norm"])
         q = (h @ lp["wq"].to(dt)).reshape(b, 1, cfg.n_heads, hd)
         k = (h @ lp["wk"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)

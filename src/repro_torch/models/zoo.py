@@ -1,5 +1,5 @@
 """Family dispatch: the reference's uniform model interface, for the
-``dense`` and ``hybrid`` families so far (other families raise
+``dense``, ``hybrid`` and ``ssm`` families so far (other families raise
 ``NotImplementedError``)."""
 
 from __future__ import annotations
@@ -8,10 +8,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models import recurrentgemma, transformer
+from repro_torch.models import recurrentgemma, rwkv6, transformer
 from repro_torch.models.common import ModelConfig
 
-FAMILY_MODULES = {"dense": transformer, "hybrid": recurrentgemma}
+FAMILY_MODULES = {"dense": transformer, "hybrid": recurrentgemma,
+                  "ssm": rwkv6}
 
 
 def module_for(cfg: ModelConfig):

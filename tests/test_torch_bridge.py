@@ -18,7 +18,8 @@ from repro_torch.configs import get_config
 from repro_torch.models import zoo
 from repro_torch.models.common import cast_matrices, tree_leaves
 
-ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b", "recurrentgemma-2b"]
+ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b", "recurrentgemma-2b",
+         "rwkv6-1.6b"]
 
 
 def _flat(tree, prefix=""):
@@ -107,6 +108,42 @@ def test_cast_matrices_keeps_norms():
     n_norm = sum(t.numel() for k, t in c.items() if k.endswith("norm"))
     assert sum(t.numel() * t.element_size() for t in tree_leaves(cast)) == \
         2 * sum(t.numel() for t in tree_leaves(p)) + 2 * n_norm
+
+
+RWKV6_FLOAT32 = ("w0", "w_lora_b", "u", "ln_x")
+
+
+def test_cast_matrices_keeps_rwkv6_decay_leaves_float32():
+    """rwkv6 reads ``w0``, ``w_lora_b``, ``u`` and ``ln_x`` in float32:
+    a tree cast once to bf16 keeps them so, and its bf16 logits equal
+    those of the uncast tree when those leaves (and the other zero-init
+    ones) hold non-trivial values."""
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", smoke=True),
+                              dtype="bfloat16")
+    gen = torch.Generator("cpu").manual_seed(2)
+    p = zoo.init(cfg, gen, device="cpu")
+    layers = p["layers"]
+    layers["w0"] = torch.empty_like(layers["w0"]).uniform_(
+        -8.0, 3.5, generator=gen)
+    for name, std in (("w_lora_b", 0.1), ("tm_lora_b", 0.02), ("u", 0.5)):
+        layers[name] = torch.randn(layers[name].shape, generator=gen) * std
+    for name in ("tm_mu", "cm_mu"):
+        layers[name] = torch.rand(layers[name].shape, generator=gen)
+    layers["ln_x"] = 1.0 + 0.1 * torch.randn(layers["ln_x"].shape,
+                                             generator=gen)
+    cast = cast_matrices(p, torch.bfloat16)
+    for path, t in _flat(cast).items():
+        name = path.split("/")[-1]
+        keep = name in RWKV6_FLOAT32 or name.endswith("norm")
+        assert t.dtype == (torch.float32 if keep else torch.bfloat16), path
+    # w0 + lora spans the decay clip, so a rounded w0 would show
+    assert not torch.equal(layers["w0"].to(torch.bfloat16).float(),
+                           layers["w0"])
+    tokens = torch.randint(0, cfg.vocab, (2, 9), generator=gen)
+    logits, _ = zoo.forward(cfg, p, {"tokens": tokens})
+    logits_cast, _ = zoo.forward(cfg, cast, {"tokens": tokens})
+    assert logits.dtype == torch.bfloat16
+    assert torch.equal(logits, logits_cast)
 
 
 def test_entry_points_refuse_missing_cuda():

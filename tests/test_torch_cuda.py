@@ -1,4 +1,4 @@
-"""The port on a CUDA card: the flash attention and RG-LRU kernels
+"""The port on a CUDA card: the flash attention, RG-LRU and WKV6 kernels
 against their plain versions, and the serving paths through the kernels.
 
 Every test here is marked ``cuda`` and skips without a card; the file
@@ -7,6 +7,8 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,11 +16,16 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 from repro_torch.kernels.rglru import rglru, rglru_plain
+from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
 from repro_torch.models import zoo
 from repro_torch.serving import Request, ServeEngine
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (atol, rtol): test_kernels.py's WKV6 tolerances in float32 (5e-4 and 5e-3
+# under strong decay), the kernel tests' 2e-2 in bfloat16
+WKV6_TOL = {torch.float32: (3e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+WKV6_STRONG_TOL = {torch.float32: (5e-4, 5e-3), torch.bfloat16: (2e-2, 2e-2)}
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +133,58 @@ def test_recurrentgemma_serving_goes_through_both_kernels(cuda_device):
     assert eng.prefill_calls == 3
     assert rglru.launches - before[0] == 4 * 3
     assert flash_attention.launches - before[1] == 1 * 3
+
+
+@pytest.mark.parametrize("b,h,s,d,w_range,floor", [
+    (2, 4, 128, 64, (0.5, 0.999), 1e-38),     # rwkv6-1.6b heads
+    (1, 3, 300, 32, (0.5, 0.999), 1e-8),      # ragged S
+    (2, 2, 37, 16, (0.5, 0.999), 1e-8),       # prime S, smoke head dim
+    (3, 2, 1, 64, (0.5, 0.999), 1e-8),        # one step
+    (1, 2, 128, 64, (1e-4, 0.2), 1e-38),      # strong decay
+    (1, 2, 96, 64, (0.0, 1e-7), 1e-8),        # decays at and below the floor
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain(cuda_device, b, h, s, d, w_range, floor,
+                                   dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    # (B,S,H,D) activations viewed as (B,H,S,D), as the model passes them
+    r, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda_device)
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    lo, hi = w_range
+    w = lo + (hi - lo) * torch.rand((b, s, h, d), generator=gen,
+                                    device=cuda_device)
+    if lo == 0.0:
+        w[..., ::3] = 0.0
+    w = w.to(dtype).transpose(1, 2)
+    u = 0.5 * torch.randn((h, d), generator=gen, device=cuda_device)
+    before = wkv6.launches
+    out, state = wkv6(r, k, v, w, u, floor=floor)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert out.dtype == dtype and state.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(state).all()
+    ref, ref_state = wkv6_plain(r, k, v, w, u, floor=floor)
+    atol, rtol = (WKV6_STRONG_TOL if hi <= 0.2 else WKV6_TOL)[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(state, ref_state, atol=atol, rtol=rtol)
+
+
+def test_rwkv6_serving_goes_through_the_kernel(cuda_device):
+    # smoke widths at the full model's 24 layers: 24 launches per prefill
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", smoke=True),
+                              n_layers=24)
+    params = zoo.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                      device=cuda_device)
+    eng = ServeEngine(cfg, params, n_slots=2, max_len=32)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((67, 6, 9)):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n)
+                           .astype(np.int32), max_new_tokens=3))
+    before = wkv6.launches
+    done = eng.run()
+    assert all(len(r.output) == 3 for r in done)
+    # waves (67,6) and (9): one wave prefill each + one re-prefill for 6;
+    # one launch per layer and prefill, none in decode
+    assert eng.prefill_calls == 3
+    assert wkv6.launches - before == 24 * 3
