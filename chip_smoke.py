@@ -6,11 +6,19 @@
 Phases, one JSON line each:
   1. card    the device name and ``nvidia-smi`` name and power limit;
   2. build   nvcc builds every CUDA kernel from the checkout's sources;
+             for the flash library, the count of ``HGMMA`` (wgmma) and
+             ``UTMALDG`` (TMA load) instructions in its SASS
+             (``cuobjdump -sass``) and each kernel's registers and spills
+             from ``ptxas -v``: a missing tool, a spill or a serialised
+             wgmma fails the run;
   3. kernel  each kernel against its plain version on the card, bf16 and
              fp32: flash attention (``attention_plain``) at the olmo-1b
              prefill shape, a GQA shape, a ragged length, a window, D=16,
-             S=1 and the recurrentgemma-2b prefill shape (D=256, MQA 10/1,
-             window 2048, S=2600); RG-LRU (``rglru_plain``) at the
+             S=1, every tile class of the bf16 TMA/wgmma kernel (S=192, not
+             a multiple of its 128 query rows; S=37, under one 64-key tile;
+             a window of 40, under one k-tile; D=64 MQA; D=256 causal with
+             no window) and the recurrentgemma-2b prefill shape (D=256, MQA
+             10/1, window 2048, S=2600); RG-LRU (``rglru_plain``) at the
              recurrentgemma-2b prefill shape, a ragged S=300, S=1 and
              a=1e-6; WKV6 (``wkv6_plain``) at the rwkv6-1.6b prefill
              shape, the rwkv6-1.6b slice's second-wave shape (S=4093,
@@ -20,7 +28,9 @@ Phases, one JSON line each:
   4. kernel_time  each kernel's time, its plain version's, a PyTorch call
              that computes the same function where one exists (a yardstick
              the port never calls) and the least time the card could take
-             (bound), at the main paths' shapes;
+             (bound), at the main paths' shapes; for flash attention also
+             the time with L2 flushed before each launch (``cold_ms``) and
+             the host time of one wrapper call;
   5. slice   olmo-1b at full width (random weights from seed 0, bf16
              activations) served by ``ServeEngine``: 8 requests of 64-512
              prompt tokens on 4 slots, 16 new tokens each;
@@ -57,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -102,8 +113,17 @@ KERNEL_SHAPES = [
     ("window 64", 2, 512, 16, 16, 128, 64),
     ("D=16", 2, 128, 4, 4, 16, None),
     ("S=1", 4, 1, 16, 16, 128, None),
+    ("S=192, not a multiple of 128", 2, 192, 16, 16, 128, None),
+    ("S=37, under one k-tile", 2, 37, 16, 16, 128, None),
+    ("window 40, under one k-tile", 2, 512, 16, 16, 128, 40),
+    ("D=64 MQA", 1, 200, 8, 1, 64, None),
+    ("D=256 causal", 2, 640, 8, 1, 256, None),
     ("recurrentgemma-2b prefill", 4, 2600, 10, 1, 256, 2048),
 ]
+# the flash shapes that are timed: the two main paths'
+FLASH_TIMED = ("olmo-1b prefill", "recurrentgemma-2b prefill")
+L2_FLUSH_BYTES = 128 << 20    # written between cold launches; L2 is 50 MB
+HOLD_CYCLES = 50_000_000      # about 25 ms of the card spinning (see hold)
 # (name, B, S, R, constant a or None for a ~ U(0.001, 0.9995))
 RGLRU_SHAPES = [
     ("recurrentgemma-2b prefill", 4, 2048, 2560, None),
@@ -139,20 +159,68 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def hold() -> None:
+    """Keep the card busy for about 25 ms, so that the launches the host
+    queues next run back to back on the card: the events around them then
+    time the card, not the host's pace of launching (a wrapper call takes
+    tens of microseconds of host time, longer than some kernels)."""
+    import torch
+    torch.cuda._sleep(HOLD_CYCLES)
+
+
 def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` from CUDA events, after a warm-up."""
+    """Mean device time of ``fn`` from CUDA events around ``iters`` launches
+    queued behind ``hold``, after a warm-up.  A function whose host time
+    outlasts the hold (the plain versions' Python loops) is timed at the
+    host's pace, as before."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    hold()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` with a cold L2: before each launch a
+    buffer of ``L2_FLUSH_BYTES`` is written, and each launch is timed by
+    its own pair of events; all of it is queued behind ``hold``."""
+    import torch
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    fn()
+    torch.cuda.synchronize()
+    hold()
+    for start, end in events:
+        buf.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def host_us(fn, iters: int = 100) -> float:
+    """Host time of one call of ``fn``, in microseconds, while the card is
+    held (so the launch queue never pushes back)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    hold()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def bound(flops: float, peak_ops: float, nbytes: float) -> dict:
@@ -192,6 +260,59 @@ def worse(a: dict, b: dict) -> dict:
     return {"max_abs_err": max(a["max_abs_err"], b["max_abs_err"]),
             "tol": a["tol"],
             "max_err_ratio": max(a["max_err_ratio"], b["max_err_ratio"])}
+
+
+def kernel_name(mangled: str) -> str | None:
+    """``fa_fwd_wgmma<128>`` from a mangled flash kernel name."""
+    m = re.search(r"(fa_fwd_\w+?)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+
+def flash_build_evidence() -> dict:
+    """What the build shows of the flash library's design: per kernel, its
+    registers, stack and spill bytes (from the ``ptxas -v`` output that
+    ``_build`` keeps) and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+    instructions (from ``cuobjdump -sass`` on the library).  Raises if the
+    tool is missing, if a kernel spills, if ptxas serialised a wgmma or
+    ignored a ``setmaxnreg``, or if the library has no wgmma or TMA load."""
+    from repro_torch.kernels import _build
+    lib, log = _build.built("flash_attention")
+    kernels, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = kernels.setdefault(kernel_name(m.group(1)), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack_bytes=int(m.group(1)),
+                           spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    warnings = [line.strip() for line in log.splitlines()
+                if re.search(r"\(C75\d\d\)", line)]
+    sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = kernel_name(chunk.split("\n", 1)[0])
+        if name in kernels:
+            kernels[name]["HGMMA"] = len(re.findall(r"\bHGMMA\.", chunk))
+            kernels[name]["UTMALDG"] = len(re.findall(r"\bUTMALDG\b", chunk))
+    out = {"HGMMA": sum(k.get("HGMMA", 0) for k in kernels.values()),
+           "UTMALDG": sum(k.get("UTMALDG", 0) for k in kernels.values()),
+           "kernels": kernels, "ptxas_warnings": warnings}
+    wgmma = {n: k for n, k in kernels.items() if n.startswith("fa_fwd_wgmma")}
+    assert sorted(wgmma) == ["fa_fwd_wgmma<128>", "fa_fwd_wgmma<256>",
+                             "fa_fwd_wgmma<64>"], out
+    assert all(k["HGMMA"] > 0 and k["UTMALDG"] > 0
+               for k in wgmma.values()), out
+    assert all(k["spill_store_bytes"] == k["spill_load_bytes"] == 0
+               for k in kernels.values()), out
+    assert not warnings, out
+    return out
 
 
 def check_flash(gen, dev) -> dict:
@@ -255,19 +376,28 @@ def check_rglru(gen, dev) -> dict:
     return max_err
 
 
-def time_flash(gen, dev, shape, max_err) -> dict:
-    """Times at one of ``KERNEL_SHAPES`` in the main path's dtype (bf16);
-    the yardstick is ``scaled_dot_product_attention`` on the same inputs
-    (GQA through ``enable_gqa``; a window through a boolean mask)."""
+def time_flash(gen, dev, name, max_err) -> dict:
+    """Times at the ``KERNEL_SHAPES`` entry ``name`` in the main path's
+    dtype (bf16): warm (``ms``, the kernel row's number) and with L2
+    flushed (``cold_ms``); the yardstick is
+    ``scaled_dot_product_attention`` on the same inputs (GQA through
+    ``enable_gqa``; a window through a boolean mask)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
-    name, b, s, h, kh, d, window = shape
+    _, b, s, h, kh, d, window = next(sh for sh in KERNEL_SHAPES
+                                     if sh[0] == name)
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
                .to(torch.bfloat16) for n in (h, kh, kh))
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True, window=window)
+
+    ms = cuda_ms(kernel)
+    cold = cold_ms(kernel)
+    launch_host_us = host_us(kernel)
     q32, k32, v32 = (t.float() for t in (q, k, v))
     fp32_ms = cuda_ms(lambda: flash_attention(q32, k32, v32, causal=True,
                                               window=window), iters=5)
@@ -288,7 +418,8 @@ def time_flash(gen, dev, shape, max_err) -> dict:
     pairs = sum(min(i + 1, window or s) for i in range(s))
     flops = 4.0 * b * h * d * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    return {"ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
+    return {"ms": ms, "cold_ms": cold, "launch_host_us": launch_host_us,
+            "fp32_ms": fp32_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             **bound(flops, PEAK_BF16_OPS_PER_S, nbytes),
             **max_err[(name, "bfloat16")],
@@ -634,7 +765,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": built, "sources": sorted(_build.sources())})
+          "per_source_s": built, "sources": sorted(_build.sources()),
+          "flash_attention": flash_build_evidence()})
 
     # 3. kernel checks ------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -647,8 +779,8 @@ def main() -> int:
           "source": "src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-          **time_flash(gen, dev, KERNEL_SHAPES[0], fa_err)}
-    fa_d256 = time_flash(gen, dev, KERNEL_SHAPES[-1], fa_err)
+          **time_flash(gen, dev, FLASH_TIMED[0], fa_err)}
+    fa_d256 = time_flash(gen, dev, FLASH_TIMED[1], fa_err)
     rg = {"name": "rglru", "route": "cuda",
           "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
           "replaces": "src/repro/kernels/rglru/kernel.py:56",
@@ -660,8 +792,8 @@ def main() -> int:
     for name, t in (("flash_attention", fa), ("flash_attention", fa_d256),
                     ("rglru", rg), ("wkv6", wk)):
         emit({"phase": "kernel_time", "kernel": name, **{k_: t[k_] for k_ in (
-            "ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "at")}})
+            "ms", "cold_ms", "launch_host_us", "fp32_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "at") if k_ in t}})
 
     # 5. slice: olmo-1b at full width ----------------------------------------
     rng = np.random.default_rng(0)
@@ -713,9 +845,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol", "max_err_ratio", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "at")
+    flash_keys = (*keys, "cold_ms")
     emit({"kernels": [
-        {**{k_: fa[k_] for k_ in keys}, "launches_by_path": by_path,
-         "at_d256": {k_: fa_d256[k_] for k_ in keys if k_ in fa_d256}},
+        {**{k_: fa[k_] for k_ in flash_keys}, "launches_by_path": by_path,
+         "at_d256": {k_: fa_d256[k_] for k_ in flash_keys if k_ in fa_d256}},
         {k_: rg[k_] for k_ in keys}, {k_: wk[k_] for k_ in keys}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

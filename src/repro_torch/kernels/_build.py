@@ -4,14 +4,17 @@ Every ``kernels/*/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, one library per source:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>_<hash>.so
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o build/repro_torch_kernels/lib<name>_<hash>.so
 
 The libraries go to ``build/repro_torch_kernels/`` at the root of the
 checkout (listed in ``.gitignore``), named by a hash of the source, its
 headers and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Sources that need building are compiled in parallel,
-one ``nvcc`` each.  A missing ``nvcc``, a failed build or a failed load
-raises: there is no fall-back.
+is loaded as it is.  Beside each library, ``<lib>.log`` keeps what nvcc
+printed: ``ptxas``'s registers, spills and warnings for every kernel.
+Sources that need building are compiled in parallel, one ``nvcc`` each.  A
+missing ``nvcc``, a failed build or a failed load raises: there is no
+fall-back.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> dict[str, Path]:
@@ -36,13 +39,15 @@ def sources() -> dict[str, Path]:
     return {p.stem: p for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
 
 
-def _nvcc() -> str:
+def tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH
+    or under CUDA_HOME (default ``/usr/local/cuda``); raises if neither."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+    for cand in (shutil.which(name), os.path.join(cuda_home, "bin", name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (neither on PATH nor under CUDA_HOME "
-                       f"{cuda_home!r}); the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found (neither on PATH nor under "
+                       f"CUDA_HOME {cuda_home!r})")
 
 
 def _lib_path(src: Path) -> Path:
@@ -50,6 +55,18 @@ def _lib_path(src: Path) -> Path:
     for p in [src, *sorted(src.parent.glob("*.cuh"))]:
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".log")
+
+
+def built(name: str) -> tuple[Path, str]:
+    """The library of kernel ``name`` (built first if needed) and the
+    output nvcc gave when it built it."""
+    build_all([name])
+    lib = _lib_path(sources()[name])
+    return lib, _log_path(lib).read_text()
 
 
 def build_all(names: list[str] | None = None) -> dict[str, float]:
@@ -62,7 +79,7 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
             if not _lib_path(srcs[n]).exists()}
     if not todo:
         return {}
-    nvcc = _nvcc()
+    nvcc = tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -81,6 +98,7 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             else:
+                _log_path(lib).write_text(out)
                 os.replace(tmp, lib)   # atomic: readers never see a partial
     finally:
         for proc, _, _ in procs.values():

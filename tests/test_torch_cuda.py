@@ -48,6 +48,12 @@ def cuda_device():
     (3, 1, 4, 2, 64, None),          # one token
     (1, 300, 10, 1, 256, 128),       # recurrentgemma heads, window
     (2, 64, 4, 1, 256, None),        # head dim 256, GQA 4/1
+    # tile classes of the bf16 TMA/wgmma kernel (128 query rows, 64 keys)
+    (2, 192, 16, 16, 128, None),     # S not a multiple of 128
+    (2, 37, 16, 16, 128, None),      # S under one k-tile
+    (2, 512, 16, 16, 128, 40),       # window under one k-tile
+    (2, 640, 8, 1, 256, None),       # D=256 causal, no window
+    (4, 2600, 10, 1, 256, 2048),     # recurrentgemma-2b prefill
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda_device, b, s, h, kh, d, window, dtype):
@@ -63,13 +69,17 @@ def test_kernel_matches_plain(cuda_device, b, s, h, kh, d, window, dtype):
                                rtol=TOL[dtype])
 
 
-def test_non_contiguous_heads_are_read_through_strides(cuda_device):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_non_contiguous_heads_are_read_through_strides(cuda_device, d,
+                                                       dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    qkv = torch.randn((2, 96, 3, 4, 64), generator=gen, device=cuda_device)
+    qkv = torch.randn((2, 96, 3, 4, d), generator=gen,
+                      device=cuda_device).to(dtype)
     q, k, v = qkv.unbind(2)                  # (B,S,H,D) views, stride 3*H*D
     out = flash_attention(q, k, v)
-    torch.testing.assert_close(out, attention_plain(q, k, v), atol=2e-5,
-                               rtol=2e-5)
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_serving_goes_through_the_kernel(cuda_device):

@@ -122,6 +122,33 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(shape_q, shape_kv,
         _check(q, kv, kv)
 
 
+def _bf16_misaligned(case):
+    """A bf16 (1, 8, 4, 16) tensor that breaks TMA's rule for a tensor map
+    (``case`` "stride": a stride that is not a multiple of 8 elements, 16
+    bytes; "base": a base that is not 16-byte aligned), and an aligned one
+    of the same shape."""
+    if case == "stride":
+        base = torch.zeros((1, 8, 4, 20), dtype=torch.bfloat16)
+        t = base[..., :16]                    # head stride 20
+    else:
+        flat = torch.zeros(1 + 8 * 4 * 16, dtype=torch.bfloat16)
+        t = flat[1:].view(1, 8, 4, 16)        # base 2 bytes past aligned
+    ok = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16)
+    return t, ok
+
+
+@pytest.mark.parametrize("case", ["stride", "base"])
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_wrapper_refuses_what_tma_cannot_map(case, which):
+    t, ok = _bf16_misaligned(case)
+    assert t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+    args = [ok, ok, ok]
+    args[which] = t
+    with pytest.raises(ValueError, match="16-byte"):
+        _check(*args)
+    _check(ok, ok, ok)      # the aligned tensors themselves pass
+
+
 def test_other_devices_never_take_the_plain_version():
     q = torch.empty((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
