@@ -6,11 +6,11 @@
 Phases, one JSON line each:
   1. card    the device name and ``nvidia-smi`` name and power limit;
   2. build   nvcc builds every CUDA kernel from the checkout's sources;
-             for the flash library, the count of ``HGMMA`` (wgmma) and
-             ``UTMALDG`` (TMA load) instructions in its SASS
-             (``cuobjdump -sass``) and each kernel's registers and spills
-             from ``ptxas -v``: a missing tool, a spill or a serialised
-             wgmma fails the run;
+             for every library each kernel's registers, stack and spills
+             from ``ptxas -v``, and for the flash library the count of
+             ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+             its SASS (``cuobjdump -sass``): a missing tool, a spill in
+             any library or a serialised wgmma fails the run;
   3. kernel  each kernel against its plain version on the card, bf16 and
              fp32: flash attention (``attention_plain``) at the olmo-1b
              prefill shape, a GQA shape, a ragged length, a window, D=16,
@@ -19,18 +19,24 @@ Phases, one JSON line each:
              a window of 40, under one k-tile; D=64 MQA; D=256 causal with
              no window) and the recurrentgemma-2b prefill shape (D=256, MQA
              10/1, window 2048, S=2600); RG-LRU (``rglru_plain``) at the
-             recurrentgemma-2b prefill shape, a ragged S=300, S=1 and
-             a=1e-6; WKV6 (``wkv6_plain``) at the rwkv6-1.6b prefill
-             shape, the rwkv6-1.6b slice's second-wave shape (S=4093,
-             prime), a ragged S=300, a prime S=509, S=1, D=16, D=32,
-             strong decay w in [1e-4, 0.2] and a floor case (exact zeros
-             and decays below 1e-8 with ``floor`` 1e-8);
+             recurrentgemma-2b prefill shape, its longest B=1 re-prefill
+             (S=2382), a ragged S=300, S=1, a=1e-6 and R=130 (copied
+             element by element); WKV6 (``wkv6_plain``) at the rwkv6-1.6b
+             prefill shape, its longest B=1 re-prefill (S=3318), the
+             slice's second-wave shape (S=4093, prime), a ragged S=300, a
+             prime S=509, S=1, D=16, D=32 (B*H below and at 128: both
+             geometries), strong decay w in [1e-4, 0.2] and a floor case
+             (exact zeros and decays below 1e-8 with ``floor`` 1e-8).
+             RG-LRU's h and h_last and WKV6's final state must equal the
+             plain versions' exactly;
   4. kernel_time  each kernel's time, its plain version's, a PyTorch call
              that computes the same function where one exists (a yardstick
-             the port never calls) and the least time the card could take
-             (bound), at the main paths' shapes; for flash attention also
-             the time with L2 flushed before each launch (``cold_ms``) and
-             the host time of one wrapper call;
+             the port never calls), the least time the card could take
+             (bound) and the host time of one wrapper call, at the main
+             paths' shapes: for the recurrences at the B=4 wave prefill and
+             the B=1 re-prefill, for WKV6 also both of its geometries; for
+             flash attention also the time with L2 flushed before each
+             launch (``cold_ms``);
   5. slice   olmo-1b at full width (random weights from seed 0, bf16
              activations) served by ``ServeEngine``: 8 requests of 64-512
              prompt tokens on 4 slots, 16 new tokens each;
@@ -52,12 +58,16 @@ Phases, one JSON line each:
              Its compared prefills also hold every WKV6 call against
              ``wkv6_plain`` on that call's own inputs (``HeldPerCall``).
 Each slice zeroes every kernel's launch counter just before it serves and
-reads them just after, and holds a wave's prefill logits (and, for
-rwkv6-1.6b, its ``tm_state``) against the same prefill through the
-kernels' plain versions, in fp32 and in bf16.  Then
+reads them just after; then runs its 8 prefill calls once more (the same
+waves, one new token each, so no decode) under ``torch.profiler`` and
+prints a ``slice_kernels`` line: per kernel its launches, summed device
+time and share of all device time in those calls; and holds a wave's
+prefill logits (and, for rwkv6-1.6b, its ``tm_state``) against the same
+prefill through the kernels' plain versions, in fp32 and in bf16.  Then
 the ``{"kernels": [...]}`` line (each kernel's largest error against its
 plain version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
-largest ratio of the error to that bound), the ``nvidia-smi`` line and, last,
+largest ratio of the error to that bound; for the recurrences also their
+B=1 numbers, ``at_b1``), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero with its traceback.  Without CUDA it exits 2 and prints no
 result.
@@ -122,26 +132,34 @@ KERNEL_SHAPES = [
 ]
 # the flash shapes that are timed: the two main paths'
 FLASH_TIMED = ("olmo-1b prefill", "recurrentgemma-2b prefill")
+# the recurrences' timed shapes: the B=4 wave prefill and the longest B=1
+# exact re-prefill that the slice runs (the served paths mostly run B=1)
+RGLRU_TIMED = ("recurrentgemma-2b prefill", "recurrentgemma-2b re-prefill")
+WKV6_TIMED = ("rwkv6-1.6b prefill", "rwkv6-1.6b re-prefill")
 L2_FLUSH_BYTES = 128 << 20    # written between cold launches; L2 is 50 MB
 HOLD_CYCLES = 50_000_000      # about 25 ms of the card spinning (see hold)
 # (name, B, S, R, constant a or None for a ~ U(0.001, 0.9995))
 RGLRU_SHAPES = [
     ("recurrentgemma-2b prefill", 4, 2048, 2560, None),
+    ("recurrentgemma-2b re-prefill", 1, 2382, 2560, None),
     ("ragged S=300", 4, 300, 2560, None),
     ("S=1", 4, 1, 2560, None),
     ("a=1e-6", 1, 64, 2560, 1e-6),
+    ("R=130, copied element by element", 1, 37, 130, None),
 ]
 # (name, B, H, S, D, decays, floor); decays "model": w = exp(-exp(x)) with
 # x ~ U(-8, 3.5), as the rwkv6-1.6b slice's w0 gives them; a pair: w ~
 # U(lo, hi); "floor": a third of w exactly 0, the rest in [0, 1e-8)
 WKV6_SHAPES = [
     ("rwkv6-1.6b prefill", 4, 32, 2048, 64, "model", 1e-8),
+    ("rwkv6-1.6b re-prefill", 1, 32, 3318, 64, "model", 1e-8),
     ("rwkv6-1.6b wave S=4093", 4, 32, 4093, 64, "model", 1e-8),
     ("ragged S=300", 2, 32, 300, 64, "model", 1e-8),
     ("prime S=509", 2, 32, 509, 64, "model", 1e-8),
     ("S=1", 4, 32, 1, 64, "model", 1e-8),
     ("D=16", 2, 4, 256, 16, "model", 1e-8),
     ("D=32", 2, 8, 256, 32, "model", 1e-8),
+    ("D=32, B*H=128", 4, 32, 96, 32, "model", 1e-8),
     ("strong decay", 2, 8, 512, 64, (1e-4, 0.2), 1e-38),
     ("floor", 2, 8, 512, 64, "floor", 1e-8),
 ]
@@ -262,26 +280,43 @@ def worse(a: dict, b: dict) -> dict:
             "max_err_ratio": max(a["max_err_ratio"], b["max_err_ratio"])}
 
 
-def kernel_name(mangled: str) -> str | None:
-    """``fa_fwd_wgmma<128>`` from a mangled flash kernel name."""
-    m = re.search(r"(fa_fwd_\w+?)ILi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else None
+def kernel_label(mangled: str) -> str:
+    """``fa_fwd_wgmma<128>`` or ``wkv6_fwd<BF16,64,8>`` from a mangled
+    kernel name: the name and its type, integer and bool template
+    arguments (the kernels live in an anonymous namespace)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, None
+    while i < len(mangled) and mangled[i].isdigit():  # <length><identifier>
+        m = re.match(r"\d+", mangled[i:])
+        n = int(m.group(0))
+        i += len(m.group(0))
+        name = mangled[i:i + n]
+        i += n
+    if name is None or not mangled[i:].startswith("I"):
+        return mangled
+    targs = mangled[i + 1:].split("Ev", 1)[0]
+    args = [t or n or b for t, n, b in re.findall(
+        r"\d(BF16|F32)E|Li(\d+)E|Lb([01])E", targs)]
+    return f"{name}<{','.join(args)}>"
 
 
-def flash_build_evidence() -> dict:
-    """What the build shows of the flash library's design: per kernel, its
+def build_evidence(name: str) -> dict:
+    """What the build shows of library ``name``: per kernel, its
     registers, stack and spill bytes (from the ``ptxas -v`` output that
-    ``_build`` keeps) and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-    instructions (from ``cuobjdump -sass`` on the library).  Raises if the
-    tool is missing, if a kernel spills, if ptxas serialised a wgmma or
-    ignored a ``setmaxnreg``, or if the library has no wgmma or TMA load."""
+    ``_build`` keeps) and ptxas's C75xx warnings (serialised wgmma,
+    ignored ``setmaxnreg``).  For the flash library also each kernel's
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions (from
+    ``cuobjdump -sass``; raises if the tool is missing).  ``ok`` is false
+    if a kernel spills or ptxas warned, and for flash also if the wgmma
+    kernels have no wgmma or TMA load."""
     from repro_torch.kernels import _build
-    lib, log = _build.built("flash_attention")
+    lib, log = _build.built(name)
     kernels, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = kernels.setdefault(kernel_name(m.group(1)), {})
+            current = kernels.setdefault(kernel_label(m.group(1)), {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and current is not None:
@@ -293,25 +328,27 @@ def flash_build_evidence() -> dict:
             current["registers"] = int(m.group(1))
     warnings = [line.strip() for line in log.splitlines()
                 if re.search(r"\(C75\d\d\)", line)]
+    out = {"kernels": kernels, "ptxas_warnings": warnings,
+           "ok": bool(kernels) and not warnings and all(
+               k.get("registers", 0) > 0
+               and k["spill_store_bytes"] == k["spill_load_bytes"] == 0
+               for k in kernels.values())}
+    if name != "flash_attention":
+        return out
     sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = kernel_name(chunk.split("\n", 1)[0])
-        if name in kernels:
-            kernels[name]["HGMMA"] = len(re.findall(r"\bHGMMA\.", chunk))
-            kernels[name]["UTMALDG"] = len(re.findall(r"\bUTMALDG\b", chunk))
-    out = {"HGMMA": sum(k.get("HGMMA", 0) for k in kernels.values()),
-           "UTMALDG": sum(k.get("UTMALDG", 0) for k in kernels.values()),
-           "kernels": kernels, "ptxas_warnings": warnings}
+        label = kernel_label(chunk.split("\n", 1)[0])
+        if label in kernels:
+            kernels[label]["HGMMA"] = len(re.findall(r"\bHGMMA\.", chunk))
+            kernels[label]["UTMALDG"] = len(re.findall(r"\bUTMALDG\b", chunk))
+    out["HGMMA"] = sum(k.get("HGMMA", 0) for k in kernels.values())
+    out["UTMALDG"] = sum(k.get("UTMALDG", 0) for k in kernels.values())
     wgmma = {n: k for n, k in kernels.items() if n.startswith("fa_fwd_wgmma")}
-    assert sorted(wgmma) == ["fa_fwd_wgmma<128>", "fa_fwd_wgmma<256>",
-                             "fa_fwd_wgmma<64>"], out
-    assert all(k["HGMMA"] > 0 and k["UTMALDG"] > 0
-               for k in wgmma.values()), out
-    assert all(k["spill_store_bytes"] == k["spill_load_bytes"] == 0
-               for k in kernels.values()), out
-    assert not warnings, out
+    out["ok"] = out["ok"] and sorted(wgmma) == [
+        "fa_fwd_wgmma<128>", "fa_fwd_wgmma<256>", "fa_fwd_wgmma<64>"] and all(
+        k["HGMMA"] > 0 and k["UTMALDG"] > 0 for k in wgmma.values())
     return out
 
 
@@ -365,11 +402,14 @@ def check_rglru(gen, dev) -> dict:
             torch.cuda.synchronize()
             tol = RGLRU_TOL[dn]
             h_ = worse(held(h, ref, tol, tol), held(h_last, ref_last, tol, tol))
+            # the kernel rounds as the plain version does: h and h_last
+            # equal it exactly, not only within the tolerance
             check = {"phase": "kernel", "kernel": "rglru", "shape": name,
                      "B": b, "S": s, "R": r, "a": a_const or "U(0.001,0.9995)",
                      "dtype": dn, **h_,
                      "ok": (h.dtype == dtype and h_last.dtype == torch.float32
-                            and h_["max_err_ratio"] <= 1.0)}
+                            and h_["max_err_ratio"] <= 1.0
+                            and h_["max_abs_err"] == 0.0)}
             emit(check)
             assert check["ok"], check
             max_err[(name, dn)] = h_
@@ -427,15 +467,17 @@ def time_flash(gen, dev, name, max_err) -> dict:
                   "bf16 causal"}
 
 
-def time_rglru(gen, dev, max_err) -> dict:
-    """Times at the recurrentgemma-2b prefill shape in bf16.  No single
-    PyTorch call computes this recurrence, so there is no yardstick."""
+def time_rglru(gen, dev, name, max_err) -> dict:
+    """Times at the ``RGLRU_SHAPES`` entry ``name`` in bf16, and the host
+    time of one wrapper call.  No single PyTorch call computes this
+    recurrence, so there is no yardstick."""
     import torch
 
     from repro_torch.kernels.rglru import rglru, rglru_plain
-    name, b, s, r, a_const = RGLRU_SHAPES[0]
+    _, b, s, r, a_const = next(sh for sh in RGLRU_SHAPES if sh[0] == name)
     a, x = rglru_inputs(gen, dev, b, s, r, a_const, torch.bfloat16)
     ms = cuda_ms(lambda: rglru(a, x))
+    launch_host_us = host_us(lambda: rglru(a, x))
     a32, x32 = a.float(), x.float()
     fp32_ms = cuda_ms(lambda: rglru(a32, x32))
     plain_ms = cuda_ms(lambda: rglru_plain(a, x), iters=3, warmup=1)
@@ -443,8 +485,8 @@ def time_rglru(gen, dev, max_err) -> dict:
     # per element: a*a, 1-, max, sqrt, *x, a*h, + (fp32, no tensor cores);
     # bytes: a and x read once, h written once (bf16), h_last (fp32)
     nbytes = 3 * n * 2 + b * r * 4
-    return {"ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
-            "library_ms": None,
+    return {"ms": ms, "launch_host_us": launch_host_us, "fp32_ms": fp32_ms,
+            "plain_ms": plain_ms, "library_ms": None,
             **bound(7.0 * n, PEAK_F32_OPS_PER_S, nbytes),
             **max_err[(name, "bfloat16")],
             "at": f"{name} B={b} S={s} R={r} bf16"}
@@ -492,25 +534,39 @@ def check_wkv6(gen, dev) -> dict:
                      "out_max_abs_err": h_out["max_abs_err"],
                      "state_max_abs_err": h_state["max_abs_err"],
                      "state_abs_max": float(ref_state.abs().max()),
+                     # the state is rounded as the plain version rounds
+                     # it: equal exactly, not only within the tolerance
                      "ok": (out.dtype == dtype
                             and state.dtype == torch.float32
-                            and h_["max_err_ratio"] <= 1.0)}
+                            and h_["max_err_ratio"] <= 1.0
+                            and h_state["max_abs_err"] == 0.0)}
             emit(check)
             assert check["ok"], check
             max_err[(name, dn)] = h_
     return max_err
 
 
-def time_wkv6(gen, dev, max_err) -> dict:
-    """Times at the rwkv6-1.6b prefill shape in bf16, inputs in the
-    model's layout.  No single PyTorch call computes this recurrence, so
-    there is no yardstick."""
+def time_wkv6(gen, dev, name, max_err) -> dict:
+    """Times at the ``WKV6_SHAPES`` entry ``name`` in bf16, inputs in the
+    model's layout, and the host time of one wrapper call.  No single
+    PyTorch call computes this recurrence, so there is no yardstick."""
     import torch
 
+    from repro_torch.kernels.rwkv6 import ops as wkv6_ops
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
-    name, b, h, s, d, decays, floor = WKV6_SHAPES[0]
+    _, b, h, s, d, decays, floor = next(sh for sh in WKV6_SHAPES
+                                        if sh[0] == name)
     args = wkv6_inputs(gen, dev, b, h, s, d, decays, torch.bfloat16)
     ms = cuda_ms(lambda: wkv6(*args, floor=floor))
+    launch_host_us = host_us(lambda: wkv6(*args, floor=floor))
+    # every geometry of the kernel (the wrapper picks one by B, H and D),
+    # which all carry the same state
+    geometry_ms = {f"{g[0]}x{g[1]}": cuda_ms(
+        lambda: wkv6_ops.launch(*args, floor=floor, geom=g))
+        for g in wkv6_ops.GEOMETRIES}
+    states = [wkv6_ops.launch(*args, floor=floor, geom=g)[1]
+              for g in wkv6_ops.GEOMETRIES]
+    assert all(torch.equal(states[0], st) for st in states[1:])
     args32 = [t.float() for t in args]
     fp32_ms = cuda_ms(lambda: wkv6(*args32, floor=floor))
     plain_ms = cuda_ms(lambda: wkv6_plain(*args, floor=floor), iters=3,
@@ -522,8 +578,10 @@ def time_wkv6(gen, dev, max_err) -> dict:
     # the state written (fp32)
     flops = n * (5.0 * d * d + 4.0 * d)
     nbytes = 5 * n * d * 2 + h * d * 4 + b * h * d * d * 4
-    return {"ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
-            "library_ms": None,
+    return {"ms": ms, "launch_host_us": launch_host_us, "fp32_ms": fp32_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "geometry": "{}x{}".format(*wkv6_ops.geometry(b, h, d)),
+            "geometry_ms": geometry_ms,
             **bound(flops, PEAK_F32_OPS_PER_S, nbytes),
             **max_err[(name, "bfloat16")],
             "at": f"{name} B={b} H={h} S={s} D={d} bf16, (B,S,H,D) strides"}
@@ -598,6 +656,65 @@ class HeldPerCall:
         return out, state
 
 
+# each kernel's symbol as a profiler trace names it (a substring)
+KERNEL_SYMBOLS = {"flash_attention": "fa_fwd", "rglru": "rglru_fwd",
+                  "wkv6": "wkv6_fwd"}
+
+
+def profile_prefills(cfg, params, prompts, *, max_len: int,
+                     counters: dict) -> dict:
+    """The slice's prefill calls once more, under ``torch.profiler`` with
+    CUDA activity: the same waves of the same prompts, one new token each,
+    so each wave runs its wave prefill and its exact re-prefills and no
+    decode step.  Per kernel: its launches in the trace, their summed
+    device time and its share of all device time in those calls (kernels,
+    copies and fills); also the largest other kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request, ServeEngine
+    engine = ServeEngine(cfg, params, n_slots=4, max_len=max_len)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=1))
+    for kernel in counters:
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    device = [e for e in prof.profiler.kineto_results.events()
+              if str(e.device_type()).endswith("CUDA")]
+    total_ns = sum(e.duration_ns() for e in device)
+    assert device and total_ns > 0, "the trace shows no device activity"
+    result = {"phase": "slice_kernels", "arch": cfg.arch_id,
+              "prefill_calls": engine.prefill_calls, "wall_s": wall,
+              "device_ms": total_ns / 1e6, "kernels": {}}
+    mine = set()
+    for kernel, per_prefill in counters.items():
+        name = kernel.__name__
+        evs = [e for e in device if KERNEL_SYMBOLS[name] in e.name()]
+        mine.update(id(e) for e in evs)
+        ns = sum(e.duration_ns() for e in evs)
+        result["kernels"][name] = {
+            "launches": len(evs), "wrapper_launches": kernel.launches,
+            "device_ms": ns / 1e6, "share": ns / total_ns}
+        assert len(evs) == kernel.launches == \
+            per_prefill * engine.prefill_calls, (name, result)
+    others = {}
+    for e in device:
+        if id(e) not in mine:
+            others[e.name()[:80]] = others.get(e.name()[:80], 0) + \
+                e.duration_ns()
+    result["largest_others"] = [
+        {"name": n, "device_ms": ns / 1e6, "share": ns / total_ns}
+        for n, ns in sorted(others.items(), key=lambda kv: -kv[1])[:5]]
+    emit(result)
+    return result
+
+
 def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
                 compare_wave: int, plain_kw: dict, state: str | None = None,
                 draw_leaves=None, per_call: HeldPerCall | None = None
@@ -658,6 +775,8 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
             per_prefill * engine.prefill_calls > 0, (
                 kernel.__name__, launches, engine.prefill_calls)
     tokens = sum(len(r.output) for r in done)
+    kernels = profile_prefills(cfg, params, prompts, max_len=max_len,
+                               counters=counters)
 
     # one wave's prompts, left-padded as the engine pads them: kernel path
     # against the plain path (launches here are not counted)
@@ -720,6 +839,7 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
         "logits_abs_max": float(lg_plain.abs().max()),
         "rows_with_clear_argmax": int(clear.sum()),
         "same_argmax_vs_plain": same_argmax}
+    result["slice_kernels"] = kernels["kernels"]
     if per_call is not None:
         result["per_call"] = {"calls": per_call.calls, **per_call.worst}
     emit(result)
@@ -764,9 +884,12 @@ def main() -> int:
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
+    evidence = {name: build_evidence(name) for name in _build.sources()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": built, "sources": sorted(_build.sources()),
-          "flash_attention": flash_build_evidence()})
+          **evidence})
+    for name, ev in evidence.items():
+        assert ev["ok"], (name, ev)
 
     # 3. kernel checks ------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -784,16 +907,21 @@ def main() -> int:
     rg = {"name": "rglru", "route": "cuda",
           "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
           "replaces": "src/repro/kernels/rglru/kernel.py:56",
-          **time_rglru(gen, dev, rg_err)}
+          **time_rglru(gen, dev, RGLRU_TIMED[0], rg_err)}
+    rg_b1 = time_rglru(gen, dev, RGLRU_TIMED[1], rg_err)
     wk = {"name": "wkv6", "route": "cuda",
           "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
           "replaces": "src/repro/kernels/rwkv6/kernel.py:80",
-          **time_wkv6(gen, dev, wk_err)}
+          **time_wkv6(gen, dev, WKV6_TIMED[0], wk_err)}
+    wk_b1 = time_wkv6(gen, dev, WKV6_TIMED[1], wk_err)
     for name, t in (("flash_attention", fa), ("flash_attention", fa_d256),
-                    ("rglru", rg), ("wkv6", wk)):
+                    ("rglru", rg), ("rglru", rg_b1), ("wkv6", wk),
+                    ("wkv6", wk_b1)):
         emit({"phase": "kernel_time", "kernel": name, **{k_: t[k_] for k_ in (
             "ms", "cold_ms", "launch_host_us", "fp32_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "at") if k_ in t}})
+            "library_ms", "bound_ms", "bound_by", "geometry", "geometry_ms",
+            "at")
+            if k_ in t}})
 
     # 5. slice: olmo-1b at full width ----------------------------------------
     rng = np.random.default_rng(0)
@@ -849,7 +977,10 @@ def main() -> int:
     emit({"kernels": [
         {**{k_: fa[k_] for k_ in flash_keys}, "launches_by_path": by_path,
          "at_d256": {k_: fa_d256[k_] for k_ in flash_keys if k_ in fa_d256}},
-        {k_: rg[k_] for k_ in keys}, {k_: wk[k_] for k_ in keys}]})
+        {**{k_: rg[k_] for k_ in keys},
+         "at_b1": {k_: rg_b1[k_] for k_ in keys if k_ in rg_b1}},
+        {**{k_: wk[k_] for k_ in keys},
+         "at_b1": {k_: wk_b1[k_] for k_ in keys if k_ in wk_b1}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -4,14 +4,16 @@ Every ``kernels/*/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, one library per source:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v \\
+         -Xcompiler -fPIC -Xptxas -v -I kernels/csrc \\
          -o build/repro_torch_kernels/lib<name>_<hash>.so
 
 The libraries go to ``build/repro_torch_kernels/`` at the root of the
-checkout (listed in ``.gitignore``), named by a hash of the source, its
-headers and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Beside each library, ``<lib>.log`` keeps what nvcc
-printed: ``ptxas``'s registers, spills and warnings for every kernel.
+checkout (listed in ``.gitignore``), named by a hash of the source, every
+header under ``kernels/`` (its own ``csrc/*.cuh`` and the shared
+``kernels/csrc/*.cuh``, on the include path) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Beside each library, ``<lib>.log`` keeps what nvcc printed: ``ptxas``'s
+registers, spills and warnings for every kernel.
 Sources that need building are compiled in parallel, one ``nvcc`` each.  A
 missing ``nvcc``, a failed build or a failed load raises: there is no
 fall-back.
@@ -30,6 +32,7 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
+SHARED_INCLUDE = KERNELS_DIR / "csrc"   # headers every kernel may include
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,8 +54,9 @@ def tool(name: str) -> str:
 
 
 def _lib_path(src: Path) -> Path:
+    # every header a source can include: its own csrc/ and the shared one
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [src, *sorted(src.parent.glob("*.cuh"))]:
+    for p in [src, *sorted(KERNELS_DIR.rglob("*.cuh"))]:
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
@@ -87,7 +91,8 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
         for name, src in todo.items():
             lib = _lib_path(src)
             tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SHARED_INCLUDE), "-o",
+                   str(tmp), str(src)]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, lib)

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernel, as
-// inline PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// the wgmma instructions at the shapes the kernel issues, register
-// rebalancing.  Included by flash_attention.cu only.
+// Hopper (sm_90a) building blocks of the port's kernels, as inline PTX:
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
+// instructions at the shapes the flash kernel issues, register rebalancing
+// (flash_attention.cu); 16-byte cp.async copies with their commit and wait
+// groups, and named barriers over part of a block (wkv6.cu, rglru.cu).
+// On the include path of every kernel source (kernels/_build.py).
 #pragma once
 
 #include <cuda.h>
@@ -57,6 +59,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- cp.async -------------------------------------------------------------
+
+// Copies 16 bytes from global `src` (16-byte aligned) to shared `dst`
+// (16-byte aligned) without passing through registers; of them, only the
+// first `src_bytes` (0..16) are read and the rest are filled with zeros,
+// so a copy past the end of the data reads nothing.  L2 only (.cg).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// closes the group of this thread's copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are pending; the
+// copies of other threads need a barrier after it before they are read
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- named barriers -------------------------------------------------------
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32, of whole warps.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- TMA ------------------------------------------------------------------

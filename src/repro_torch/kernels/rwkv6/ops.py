@@ -25,7 +25,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("wkv6")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.repro_wkv6_fwd.argtypes = (
-        [p] * 7 + [i] * 5 + [i64] * 6 + [ctypes.c_float, p])
+        [p] * 7 + [i] * 7 + [i64] * 6 + [ctypes.c_float, p])
     lib.repro_wkv6_fwd.restype = i
     lib.repro_wkv6_error_string.argtypes = [i]
     lib.repro_wkv6_error_string.restype = ctypes.c_char_p
@@ -57,6 +57,27 @@ def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.stride(3) != 1 or any(t.stride() != r.stride() for t in (k, v, w)):
         raise ValueError("wkv6: r, k, v and w must share their strides, with "
                          "the head dim contiguous (stride 1)")
+    # the kernel stages rows of D elements by 16-byte asynchronous copies
+    size = r.element_size()
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)) or any(
+            r.stride(i) * size % 16 for i in range(3) if r.shape[i] > 1):
+        raise ValueError("wkv6: r, k, v and w must start on 16 bytes, and "
+                         "their batch, head and step strides be multiples "
+                         f"of 16 bytes; got strides {r.stride()} of "
+                         f"{size}-byte elements")
+
+
+# the kernel's geometries: the (rows, columns) of the state a thread keeps
+GEOMETRIES = ((8, 4), (8, 1))
+
+
+def geometry(b: int, h: int, d: int) -> tuple[int, int]:
+    """The kernel's geometry for a (B,H,.,D) call.  At D=64, 8 x 4 a thread
+    makes one block of 128 threads a head, and each r, k, w value it reads
+    from shared memory serves 4 columns; 8 x 1 makes 4 blocks a head, for
+    a B*H too small to fill an H100's 132 SMs with one block a head.
+    8 x 4 needs D >= 32."""
+    return (8, 4) if b * h >= 128 and d > 16 else (8, 1)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -73,6 +94,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _check(r, k, v, w, u)
     if not 0.0 <= floor <= 1.0:
         raise ValueError(f"wkv6: floor {floor} outside [0, 1]")
+    b, h, _, d = r.shape
+    out, state = launch(r, k, v, w, u, floor=floor, geom=geometry(b, h, d))
+    wkv6.launches += 1
+    return out, state
+
+
+def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor, *, floor: float,
+           geom: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel in geometry ``geom`` (of ``GEOMETRIES``),
+    on inputs that passed ``_check``; counts nothing (``wkv6`` counts)."""
     b, h, s, d = r.shape
     out = torch.empty_like(r)
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
@@ -81,12 +113,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         err = lib.repro_wkv6_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), out.data_ptr(), state.data_ptr(),
-            _DTYPE_CODES[r.dtype], b, h, s, d, *r.stride()[:3],
+            _DTYPE_CODES[r.dtype], b, h, s, d, *geom, *r.stride()[:3],
             *out.stride()[:3], floor, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("wkv6 launch failed: "
                            + lib.repro_wkv6_error_string(err).decode())
-    wkv6.launches += 1
     return out, state
 
 

@@ -104,6 +104,7 @@ def test_serving_goes_through_the_kernel(cuda_device):
     (1, 37, 130, None),      # ragged S, R not a multiple of the block
     (3, 1, 32, None),        # one step
     (1, 64, 32, 1e-6),       # extreme decay
+    (1, 2382, 2560, None),   # recurrentgemma-2b's B=1 exact re-prefill
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_matches_plain(cuda_device, b, s, r, a_const, dtype):
@@ -124,6 +125,8 @@ def test_rglru_kernel_matches_plain(cuda_device, b, s, r, a_const, dtype):
     tol = RGLRU_TOL[dtype]
     torch.testing.assert_close(h.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h_last, ref_last, atol=tol, rtol=tol)
+    # rounded as the plain version rounds: equal, not only close
+    assert torch.equal(h, ref) and torch.equal(h_last, ref_last)
 
 
 def test_recurrentgemma_serving_goes_through_both_kernels(cuda_device):
@@ -152,6 +155,9 @@ def test_recurrentgemma_serving_goes_through_both_kernels(cuda_device):
     (3, 2, 1, 64, (0.5, 0.999), 1e-8),        # one step
     (1, 2, 128, 64, (1e-4, 0.2), 1e-38),      # strong decay
     (1, 2, 96, 64, (0.0, 1e-7), 1e-8),        # decays at and below the floor
+    (1, 32, 3318, 64, (0.5, 0.999), 1e-8),    # rwkv6-1.6b's B=1 re-prefill
+    (4, 32, 100, 64, (0.5, 0.999), 1e-8),     # B*H >= 128: 8 x 4 a thread
+    (4, 32, 37, 32, (0.5, 0.999), 1e-8),      # the same at D=32, ragged
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_kernel_matches_plain(cuda_device, b, h, s, d, w_range, floor,
@@ -178,6 +184,8 @@ def test_wkv6_kernel_matches_plain(cuda_device, b, h, s, d, w_range, floor,
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=rtol)
     torch.testing.assert_close(state, ref_state, atol=atol, rtol=rtol)
+    # the state is rounded as the plain version rounds it: equal
+    assert torch.equal(state, ref_state)
 
 
 def test_rwkv6_serving_goes_through_the_kernel(cuda_device):

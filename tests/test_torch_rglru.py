@@ -168,3 +168,34 @@ def test_other_devices_never_take_the_plain_version():
     a = torch.empty((1, 8, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         rglru(a, a)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_model_inputs_pass_the_kernel_checks(dtype):
+    """The recurrentgemma smoke model's RG-LRU inputs, caught through
+    ``rglru_fn`` in a wave prefill (B=2) and a re-prefill (B=1), pass the
+    wrapper's ``_check``: on a card they would go to the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.common import cast_matrices
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
+                              dtype=dtype)
+    params = cast_matrices(zoo.init(cfg, torch.Generator().manual_seed(0),
+                                    device=torch.device("cpu")),
+                           cfg.activation_dtype)
+    calls = []
+
+    def rglru_fn(a, x):
+        _check(a, x)
+        calls.append((tuple(a.shape), a.dtype))
+        return rglru_plain(a, x)
+
+    rng = np.random.default_rng(9)
+    for b, s in ((2, 12), (1, 7)):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))
+        zoo.prefill(cfg, params, {"tokens": tokens},
+                    zoo.cache_max_len(cfg, s + 4), rglru_fn=rglru_fn)
+    assert len(calls) == 2 * 4        # 4 recurrent blocks of 5 layers
+    assert all(dt == cfg.activation_dtype for _, dt in calls)

@@ -219,3 +219,59 @@ def test_other_devices_never_take_the_plain_version():
     with pytest.raises(ValueError, match="no kernel"):
         wkv6(t, t, t, t, torch.empty((1, 16), device="meta"),
              floor=MODEL_FLOOR)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_model_inputs_pass_the_kernel_checks(dtype):
+    """The rwkv6 smoke model's WKV6 inputs, caught through ``wkv_fn`` in a
+    wave prefill (B=2) and a re-prefill (B=1), pass the wrapper's
+    ``_check``, the 16-byte alignment of the kernel's copies included:
+    on a card they would go to the kernel, not to an exception."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.common import cast_matrices
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", smoke=True),
+                              dtype=dtype)
+    params = cast_matrices(zoo.init(cfg, torch.Generator().manual_seed(0),
+                                    device=torch.device("cpu")),
+                           cfg.activation_dtype)
+    calls = []
+
+    def wkv_fn(r, k, v, w, u, *, floor):
+        _check(r, k, v, w, u)
+        calls.append((tuple(r.shape), r.dtype))
+        return wkv6_plain(r, k, v, w, u, floor=floor)
+
+    rng = np.random.default_rng(8)
+    for b, s in ((2, 12), (1, 7)):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))
+        zoo.prefill(cfg, params, {"tokens": tokens},
+                    zoo.cache_max_len(cfg, s + 4), wkv_fn=wkv_fn)
+    assert len(calls) == 2 * cfg.n_layers
+    assert all(dt == cfg.activation_dtype for _, dt in calls)
+
+
+def _misaligned(kind, dtype):
+    """(B,H,S,D) = (1,2,8,16) views that share their strides, with the
+    head dim contiguous, that the kernel's 16-byte copies cannot take."""
+    if kind == "pointer":        # starts 4 bytes into its storage
+        return [torch.zeros(1 * 2 * 8 * 16 + 2, dtype=dtype)[2:]
+                .view(1, 2, 8, 16) for _ in range(4)]
+    # step stride of 17 (float32: 68 bytes) or 20 (bfloat16: 40 bytes)
+    pad = 17 if dtype == torch.float32 else 20
+    return [torch.zeros((1, 2, 8, pad), dtype=dtype)[..., :16]
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("kind,dtype", [
+    ("pointer", torch.float32),
+    ("pointer", torch.bfloat16),
+    ("step stride", torch.float32),
+    ("step stride", torch.bfloat16),
+])
+def test_wrapper_refuses_misaligned_views(kind, dtype):
+    r, k, v, w = _misaligned(kind, dtype)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _check(r, k, v, w, _t((2, 16)))
