@@ -29,6 +29,13 @@ Phases, one JSON line each:
              (exact zeros and decays below 1e-8 with ``floor`` 1e-8).
              RG-LRU's h and h_last and WKV6's final state must equal the
              plain versions' exactly;
+  3b. grad  each kernel's autograd Function (the kernel forward, the
+             recomputed VJP of its plain version in the backward), bf16
+             and fp32: flash at the olmo-1b head shape (B=2, S=256),
+             RG-LRU at B=2, S=128, R=2560, WKV6 at B=2, H=32, S=128, D=64
+             in the model's strides; every input gets a gradient (not
+             None) within the kernel tolerances of autograd through the
+             plain version on the same card;
   4. kernel_time  each kernel's time, its plain version's, a PyTorch call
              that computes the same function where one exists (a yardstick
              the port never calls), the least time the card could take
@@ -57,6 +64,23 @@ Phases, one JSON line each:
              0.02), ``tm_mu`` and ``cm_mu`` ~ U(0, 1), ``u`` ~ N(0, 0.5).
              Its compared prefills also hold every WKV6 call against
              ``wkv6_plain`` on that call's own inputs (``HeldPerCall``).
+  8. train   olmo-1b at full width trained by ``make_train_step``:
+             random fp32 weights from seed 0, bf16 activations, AdamW
+             (fp32 moments, lr 1e-4 from its first step), ``remat=True``,
+             2 microbatches, 4 steps on one fixed ``SyntheticLM`` batch of
+             B=4, S=2048: each step's time after a sync, the median of
+             steps 2-4, training tokens/s, the share of the bf16 peak that
+             6 * params * tokens a step reaches, the loss of each step
+             (finite, falling), peak memory and flash's launches on the
+             path (zeroed just before: exactly 16 layers x 2 microbatches
+             x (forward + remat recompute) x 4 steps = 256); then a fifth
+             step under ``torch.profiler`` (``train_kernels``: device time
+             by group of kernels, the largest kernels);
+  9. train_grad  one fp32 microbatch of olmo-1b at full width (B=1,
+             S=512, TF32 off): the loss's gradients through the kernel
+             path against the same with ``self_attn=attention_plain``,
+             per leaf within 1e-3 of the leaf's largest |g|; with bf16
+             activations held as the slices hold bf16 logits.
 Each slice zeroes every kernel's launch counter just before it serves and
 reads them just after; then runs its 8 prefill calls once more (the same
 waves, one new token each, so no decode) under ``torch.profiler`` and
@@ -64,8 +88,9 @@ prints a ``slice_kernels`` line: per kernel its launches, summed device
 time and share of all device time in those calls; and holds a wave's
 prefill logits (and, for rwkv6-1.6b, its ``tm_state``) against the same
 prefill through the kernels' plain versions, in fp32 and in bf16.  Then
-the ``{"kernels": [...]}`` line (each kernel's largest error against its
-plain version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
+the ``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b
+train path's included; each kernel's largest error against its plain
+version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
 largest ratio of the error to that bound; for the recurrences also their
 B=1 numbers, ``at_b1``), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -77,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -136,6 +162,20 @@ FLASH_TIMED = ("olmo-1b prefill", "recurrentgemma-2b prefill")
 # exact re-prefill that the slice runs (the served paths mostly run B=1)
 RGLRU_TIMED = ("recurrentgemma-2b prefill", "recurrentgemma-2b re-prefill")
 WKV6_TIMED = ("rwkv6-1.6b prefill", "rwkv6-1.6b re-prefill")
+# the grad phase's shapes: flash (B, S, H, K, D) at the olmo-1b head shape,
+# RG-LRU (B, S, R), WKV6 (B, H, S, D)
+GRAD_SHAPES = {"flash_attention": (2, 256, 16, 16, 128),
+               "rglru": (2, 128, 2560), "wkv6": (2, 32, 128, 64)}
+# the olmo-1b train phase: B=4 sequences of S=2048 in 2 microbatches, 4
+# steps on one fixed batch; AdamW at 1e-4 from its first step (a warm-up of
+# one step), cosine to 1e-5 at step 4.  Adam's first step moves every
+# weight by about lr: at 1e-3 with no warm-up the loss of this model rose
+# over the 4 steps; at 1e-4 it rises at step 2 and ends below step 1's
+# (PERF.md, section 6)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 4
+TRAIN_LR = 1e-4
+# the train_grad check: one fp32 microbatch of olmo-1b, B=1, S=512
+TRAIN_GRAD_SEQ = 512
 L2_FLUSH_BYTES = 128 << 20    # written between cold launches; L2 is 50 MB
 HOLD_CYCLES = 50_000_000      # about 25 ms of the card spinning (see hold)
 # (name, B, S, R, constant a or None for a ~ U(0.001, 0.9995))
@@ -855,6 +895,272 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     return result
 
 
+def check_grads(gen, dev) -> dict:
+    """The grad phase: each kernel's autograd Function on the card, in bf16
+    and fp32 at ``GRAD_SHAPES``.  A random cotangent of every output goes
+    back through the kernel path (the kernel forward, the recomputed VJP
+    of the plain version) and through autograd of the plain differentiable
+    version on the same inputs; every input must get a gradient (not None)
+    within the kernel tolerances of the plain one."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru import rglru, rglru_plain
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
+    from repro_torch.models import layers
+
+    def dense(q, k, v):
+        return layers._attention_torch(q, k, v, causal=True, window=None,
+                                       q_offset=0, softcap=0.0)
+
+    out = {}
+    for kernel in (flash_attention, rglru, wkv6):
+        name = kernel.__name__
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dtype_name(dtype)
+            if name == "flash_attention":
+                b, s_, h, kh, d = GRAD_SHAPES[name]
+                ins = [torch.randn((b, s_, n, d), generator=gen, device=dev)
+                       .to(dtype) for n in (h, kh, kh)]
+                path = lambda q, k, v: (layers.attention(  # noqa: E731
+                    q, k, v, causal=True),)
+                plain = lambda q, k, v: (dense(q, k, v),)  # noqa: E731
+                atol = rtol = TOL[dn]
+            elif name == "rglru":
+                ins = list(rglru_inputs(gen, dev, *GRAD_SHAPES[name], None,
+                                        dtype))
+                path, plain = rglru, rglru_plain
+                atol = rtol = RGLRU_TOL[dn]
+            else:
+                b, h, s_, d = GRAD_SHAPES[name]
+                ins = list(wkv6_inputs(gen, dev, b, h, s_, d, "model",
+                                       dtype))
+                path = lambda *a: wkv6(*a, floor=1e-8)  # noqa: E731
+                plain = lambda *a: wkv6_plain(*a, floor=1e-8)  # noqa: E731
+                atol, rtol = WKV6_TOL[dn]
+            # leaves with the strides the model passes (views for WKV6)
+            ins = [t.detach().requires_grad_(True) for t in ins]
+            before = kernel.launches
+            outs = path(*ins)
+            launched = kernel.launches - before
+            cots = [torch.randn(o.shape, generator=gen, device=dev)
+                    .to(o.dtype) for o in outs]
+            got = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+            want = torch.autograd.grad(plain(*ins), ins, cots,
+                                       allow_unused=True)
+            torch.cuda.synchronize()
+            missing = [i for i, g in enumerate(got) if g is None]
+            per_input = [held(g, w, atol, rtol) for g, w in zip(got, want)
+                         if g is not None]
+            h_ = per_input[0]
+            for other in per_input[1:]:
+                h_ = worse(h_, other)
+            check = {"phase": "grad", "kernel": name, "dtype": dn,
+                     "shape": list(ins[0].shape), "inputs": len(ins),
+                     "inputs_without_grad": missing, "launches": launched,
+                     **h_, "ok": (not missing and launched == 1
+                                  and h_["max_err_ratio"] <= 1.0)}
+            emit(check)
+            assert check["ok"], check
+            out[(name, dn)] = h_
+    return out
+
+
+# groups of device kernels in a traced train step, by a substring of the
+# kernel's name (the first that matches)
+TRAIN_KERNEL_GROUPS = (
+    ("flash_attention", ("fa_fwd",)),
+    ("fp32 GEMM", ("f32f32", "sgemm", "gemmk1")),
+    ("bf16 GEMM", ("nvjet",)),
+    ("softmax", ("oftMax", "softmax")),
+    ("copy and cast", ("copy",)),
+)
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """One more train step under ``torch.profiler`` with CUDA activity:
+    all device time, each group of ``TRAIN_KERNEL_GROUPS`` (the rest is
+    "other": PyTorch's elementwise and reduction kernels) and the largest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    device = [e for e in prof.profiler.kineto_results.events()
+              if str(e.device_type()).endswith("CUDA")]
+    total_ns = sum(e.duration_ns() for e in device)
+    assert device and total_ns > 0, "the trace shows no device activity"
+    groups, names = {}, {}
+    for e in device:
+        name = e.name()
+        group = next((g for g, keys in TRAIN_KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0) + e.duration_ns()
+        names[name[:80]] = names.get(name[:80], 0) + e.duration_ns()
+    return {"phase": "train_kernels", "device_ms": total_ns / 1e6,
+            "groups": {g: {"device_ms": ns / 1e6, "share": ns / total_ns}
+                       for g, ns in sorted(groups.items(),
+                                           key=lambda kv: -kv[1])},
+            "largest": [{"name": n, "device_ms": ns / 1e6,
+                         "share": ns / total_ns} for n, ns in sorted(
+                names.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def train_olmo(dev) -> dict:
+    """The train phase: olmo-1b at full width (random weights from seed 0,
+    fp32 params, bf16 activations), AdamW with fp32 moments,
+    ``remat=True``, ``TRAIN_MICRO`` microbatches, ``TRAIN_STEPS`` steps on
+    one fixed batch of ``SyntheticLM``.  Flash's launch count is zeroed
+    just before the steps and read just after: 16 layers x 2 microbatches
+    x (forward + remat recompute) x 4 steps."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    cfg = get_config("olmo-1b")
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, remat=True,
+                       optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                             total_steps=TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab=cfg.vocab))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in source.batch_at(0).items()}
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    flash_attention.launches = 0
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    kernels = profile_train_step(step, state, batch)
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    median_s = statistics.median(times[1:])
+    flops = 6.0 * n_params * tokens
+    losses = [m["loss"] for m in metrics]
+    finite = all(math.isfinite(v) for m in metrics for v in m.values()) \
+        and all(bool(torch.isfinite(t).all())
+                for t in tree_leaves(state["params"]))
+    expected = cfg.n_layers * TRAIN_MICRO * 2 * TRAIN_STEPS
+    result = {
+        "phase": "train", "arch": cfg.arch_id, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+        "remat": True, "activations": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "moment_dtype": "float32",
+        "lr": TRAIN_LR, "init_s": init_s, "step_s": times,
+        "median_step_s_2_to_4": median_s,
+        "tokens_per_s": tokens / median_s,
+        "flops_per_step_6NT": flops,
+        "bf16_peak_share": flops / median_s / PEAK_BF16_OPS_PER_S,
+        "loss": losses, "lr_per_step": [m["lr"] for m in metrics],
+        "grad_norm": [m["grad_norm"] for m in metrics],
+        "peak_mem_bytes": peak, "flash_launches": launches,
+        "expected_flash_launches": expected,
+        "ok": finite and losses[-1] < losses[0] and launches == expected}
+    emit(kernels)
+    emit(result)
+    assert result["ok"], result
+    del state, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def leaf_paths(tree: dict, prefix: str = "") -> list[str]:
+    """The ``/`` paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    return [p for k, v in tree.items()
+            for p in (leaf_paths(v, f"{prefix}{k}/") if isinstance(v, dict)
+                      else [prefix + k])]
+
+
+def train_grad_check(dev) -> dict:
+    """One microbatch of olmo-1b at full width (B=1, S=``TRAIN_GRAD_SEQ``,
+    fp32 params from seed 0): the loss's gradients through the kernel path
+    against the same with ``self_attn=attention_plain``, per leaf.  In fp32
+    (TF32 off) within 1e-3 of the leaf's largest |g|; in bf16 activations
+    as the slices hold bf16 logits (``held_to_plain``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    cfg = get_config("olmo-1b")
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    paths = leaf_paths(params)
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_GRAD_SEQ, global_batch=1,
+                                    vocab=cfg.vocab, seed=1))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in source.batch_at(0).items()}
+    grads, losses = {}, {}
+    for dn in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dn)
+        for path_name, kw in (("kernel", {}),
+                              ("plain", {"self_attn": attention_plain})):
+            leaves = tree_map(lambda _, p: p.detach().requires_grad_(True),
+                              params)
+            loss, _ = zoo.loss_fn(c, leaves, batch, **kw)
+            losses[f"{dn}_{path_name}"] = float(loss.detach())
+            # the non-parametric norms' scales get zeros
+            grads[dn, path_name] = torch.autograd.grad(
+                loss, tree_leaves(leaves), allow_unused=True,
+                materialize_grads=True)
+            del leaves, loss
+    torch.cuda.synchronize()
+    leaves_held = {}
+    for i, path in enumerate(paths):
+        leaves_held[path] = held_to_plain(
+            "grad", grads["bfloat16", "kernel"][i],
+            grads["bfloat16", "plain"][i], grads["float32", "kernel"][i],
+            grads["float32", "plain"][i])
+    ratio32 = {p: h["fp32_grad_max_abs_err_vs_plain"]
+               / max(h["fp32_grad_tol"], 1e-30) for p, h in
+               leaves_held.items()}
+    ratio16 = {p: h["grad_max_abs_err_vs_plain"] / max(h["grad_tol"], 1e-30)
+               for p, h in leaves_held.items()}
+    result = {"phase": "train_grad", "arch": cfg.arch_id, "batch": 1,
+              "seq": TRAIN_GRAD_SEQ, "losses": losses,
+              "fp32_worst_leaf": max(ratio32, key=ratio32.get),
+              "fp32_worst_gap_over_largest_g": 1e-3 * max(ratio32.values()),
+              "bf16_worst_leaf": max(ratio16, key=ratio16.get),
+              "bf16_worst_gap_over_largest_g":
+                  LOGIT_RTOL["bfloat16"] * max(ratio16.values()),
+              "leaves": leaves_held,
+              "ok": all(h["ok"] for h in leaves_held.values())}
+    emit(result)
+    assert result["ok"], result
+    del params, grads
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -896,6 +1202,7 @@ def main() -> int:
     fa_err = check_flash(gen, dev)
     rg_err = check_rglru(gen, dev)
     wk_err = check_wkv6(gen, dev)
+    check_grads(gen, dev)
 
     # 4. kernel times -------------------------------------------------------
     fa = {"name": "flash_attention", "route": "cuda",
@@ -964,9 +1271,14 @@ def main() -> int:
         draw_leaves=draw_rwkv6_leaves, per_call=HeldPerCall())
     assert rwkv["compared_prompt_len"] == 4093
 
-    # 8. kernels line, card line, result --------------------------------------
+    # 8. train: olmo-1b at full width; its gradients against the plain path
+    train = train_olmo(dev)
+    train_grad_check(dev)
+
+    # 9. kernels line, card line, result --------------------------------------
     by_path = {"olmo-1b": olmo["launches"]["flash_attention"],
-               "recurrentgemma-2b": rgemma["launches"]["flash_attention"]}
+               "recurrentgemma-2b": rgemma["launches"]["flash_attention"],
+               "olmo-1b train": train["flash_launches"]}
     fa["launches"] = sum(by_path.values())
     rg["launches"] = rgemma["launches"]["rglru"]
     wk["launches"] = rwkv["launches"]["wkv6"]

@@ -3,8 +3,11 @@
 The reference's params, read with ``np.asarray`` leaf by leaf, are a
 nested dict of numpy arrays (``ml_dtypes.bfloat16`` included).
 ``params_from_jax`` turns such a tree into torch tensors under the same
-paths; ``params_to_numpy`` is the inverse.  The two packages' random
-generators differ, so this is the one way to give both the same weights.
+paths; ``params_to_numpy`` is the inverse.  Both take any nested dict,
+so they move a whole train state too.  The two
+packages' random generators differ, so this is the one way to give both
+the same weights.  (Checkpoints do not come through here: they read and
+write bf16 by its bits, without ``ml_dtypes``; see ``train/checkpoint.py``.)
 """
 
 from __future__ import annotations
@@ -39,12 +42,17 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(tree: Params, device: str | torch.device = "cpu"
                     ) -> Params:
-    """Nested dict of numpy arrays -> nested dict of tensors on ``device``."""
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``:
+    a param tree, or a whole train state of the reference (``params``,
+    ``opt`` with ``mu``, ``nu`` and the int32 scalar ``step``, optionally
+    ``error``)."""
     dev = torch.device(device)
     return tree_map(lambda _, a: _to_torch(a, dev), tree)
 
 
 def params_to_numpy(tree: Params) -> Params:
-    """Nested dict of tensors -> nested dict of numpy arrays (bf16 as
-    ``ml_dtypes.bfloat16``)."""
+    """Nested dict of tensors (params or a whole train state) -> nested
+    dict of numpy arrays (bf16 as ``ml_dtypes.bfloat16``, ``opt/step`` an
+    int32 scalar)."""
     return tree_map(lambda _, t: _to_numpy(t), tree)
+

@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written kernel (``csrc/rglru.cu``) or to
 an exception; a CPU tensor goes to the plain version
 (``ref.rglru_plain``).  ``rglru.launches`` counts the kernel launches, so
-a run can show its path went through the kernel.
+a run can show its path went through the kernel.  The kernel is
+forward-only; where autograd needs the gradient, ``_grad.KernelFn``'s
+backward recomputes ``rglru_plain`` on the saved inputs and returns its
+vector-Jacobian product.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.rglru.ref import rglru_plain
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +58,14 @@ def rglru(a: torch.Tensor, x: torch.Tensor
     if a.device.type != "cuda":
         raise ValueError(f"rglru: no kernel for device {a.device}")
     _check(a, x)
+    if needs_grad(a, x):
+        return KernelFn.apply(_launch, rglru_plain, {}, a, x)
+    return _launch(a, x)
+
+
+def _launch(a: torch.Tensor, x: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One counted launch of the kernel on inputs that passed ``_check``."""
     b, s, r = a.shape
     h = torch.empty_like(x)
     h_last = torch.empty((b, r), dtype=torch.float32, device=x.device)

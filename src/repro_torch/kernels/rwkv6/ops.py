@@ -3,7 +3,11 @@
 A CUDA tensor goes to the hand-written kernel (``csrc/wkv6.cu``) or to
 an exception; a CPU tensor goes to the plain version
 (``ref.wkv6_plain``).  ``wkv6.launches`` counts the kernel launches, so a
-run can show its path went through the kernel.
+run can show its path went through the kernel.  The kernel is
+forward-only; where autograd needs the gradient, ``_grad.KernelFn``'s
+backward recomputes ``wkv6_plain`` (with the same floor, so the clip's zero
+gradient below it is the same) on the saved inputs and returns its
+vector-Jacobian product.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.rwkv6.ref import wkv6_plain
 
 HEAD_DIMS = (16, 32, 64)
@@ -94,6 +99,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _check(r, k, v, w, u)
     if not 0.0 <= floor <= 1.0:
         raise ValueError(f"wkv6: floor {floor} outside [0, 1]")
+    if needs_grad(r, k, v, w, u):
+        return KernelFn.apply(_forward, wkv6_plain, {"floor": floor},
+                              r, k, v, w, u)
+    return _forward(r, k, v, w, u, floor=floor)
+
+
+def _forward(r, k, v, w, u, *, floor: float
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One counted launch, in the geometry ``geometry`` picks."""
     b, h, _, d = r.shape
     out, state = launch(r, k, v, w, u, floor=floor, geom=geometry(b, h, d))
     wkv6.launches += 1

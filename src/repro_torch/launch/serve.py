@@ -1,11 +1,13 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch olmo-1b [--device cuda|cpu] ...``
 
-Random-initializes a model from ``--seed`` and drives the batched serving
-engine over a synthetic request stream, printing the same JSON keys as
-``repro.launch.serve``.  With a bfloat16 activation dtype the weight
-matrices are cast once to bfloat16 (norm scales stay float32), which gives
-the numbers of the reference's per-use casts.
+Random-initializes a model from ``--seed`` (or, with ``--ckpt-dir``,
+restores the params of the latest training checkpoint, of either package)
+and drives the batched serving engine over a synthetic request stream,
+printing the same JSON keys as ``repro.launch.serve``.  With a bfloat16
+activation dtype the weight matrices are cast once to bfloat16 (norm
+scales stay float32), which gives the numbers of the reference's per-use
+casts.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import zoo
 from repro_torch.models.common import cast_matrices
 from repro_torch.serving import Request, ServeEngine
+from repro_torch.train import CheckpointManager
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -35,13 +38,22 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore params from a training checkpoint")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = cast_matrices(zoo.init(cfg, gen, device=device),
-                           cfg.activation_dtype)
+    if args.ckpt_dir:
+        restored = CheckpointManager(args.ckpt_dir, device=device).restore()
+        if restored is None:
+            raise SystemExit(f"no checkpoint in {args.ckpt_dir}")
+        params = restored[0]["params"]
+        print(f"restored params from step {restored[2]}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = zoo.init(cfg, gen, device=device)
+    params = cast_matrices(params, cfg.activation_dtype)
 
     engine = ServeEngine(cfg, params, n_slots=args.slots,
                          max_len=args.max_len)

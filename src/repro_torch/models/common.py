@@ -61,10 +61,12 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # kept for field-by-field equality with the reference config; the
-    # port's layer loop does not read them yet (remat arrives with the
-    # training slice, sharding with the multi-device one)
+    # per-layer rematerialization: "none" | "full" ("full" wraps every
+    # layer of the forward in activation checkpointing, ``maybe_remat``)
     remat: str = "none"
+    # kept for field-by-field equality with the reference config; the
+    # port's layer loop does not read them yet (sharding arrives with the
+    # multi-device slice)
     scan_unroll: bool = False
     batch_axes: tuple = ()
     seq_axes: tuple = ()
@@ -144,6 +146,22 @@ def tree_leaves(tree: Params) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def unstack(tree: Params, n: int) -> list[Params]:
+    """The ``n`` layers of a tree of stacked (leading-dim) params, as views.
+    One ``unbind`` a leaf, so autograd stacks the layers' gradients of a
+    leaf once (indexing layer by layer would add a full-size zero-padded
+    gradient a layer)."""
+    per_leaf = tree_map(lambda _, t: t.unbind(0), tree)
+    return [tree_map(lambda _, ts: ts[i], per_leaf) for i in range(n)]
+
+
+def tree_get(tree: Params, path: str) -> Any:
+    """The leaf (or subtree) of ``tree`` at the ``/`` path ``path``."""
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
 
 
 def tree_map(fn, tree: Params, path: str = "") -> Params:

@@ -12,19 +12,36 @@ On CUDA, prefill self-attention goes through the hand-written flash
 attention kernel and the prefill RG-LRU scan through the hand-written
 RG-LRU kernel; everything else runs the dense math below.  The RWKV6
 prefill recurrence goes to the WKV6 kernel from ``models/rwkv6.py``; its
-decode step is here.
+decode step is here.  The kernels are forward-only: where autograd needs
+a gradient through one, its backward recomputes the differentiable torch
+version of the same function (``kernels._grad.KernelFn``: here
+``_attention_torch``, in the recurrences' ``ops.py`` their plain scans), as
+the reference differentiates its jnp math.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru import rglru, rglru_plain
+
+
+def maybe_remat(body: Callable, remat: str) -> Callable:
+    """``body`` under per-layer activation checkpointing when ``remat`` is
+    "full" (the reference's ``maybe_remat`` around each scan body): its
+    activations are recomputed in the backward, not kept."""
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    return body
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -147,12 +164,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,Sq,H,D), k/v: (B,Sk,K,D) with H % K == 0.  Returns (B,Sq,H,D).
 
     On CUDA, self-attention (Sq == Sk, ``q_offset`` 0, no softcap) runs
-    the flash attention kernel.  Everything else runs the dense math,
-    in q-chunks above ``_CHUNK_THRESHOLD`` score elements."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
+    the flash attention kernel, through ``KernelFn`` (backward: the dense
+    math's) where autograd needs its gradient.  Everything else runs the dense math, in q-chunks
+    above ``_CHUNK_THRESHOLD`` score elements."""
+    sq, sk = q.shape[1], k.shape[1]
     if q.is_cuda and sq == sk and q_offset == 0 and not softcap:
+        if needs_grad(q, k, v):
+            return KernelFn.apply(flash_attention, _attention_torch,
+                                  {"causal": causal, "window": window},
+                                  q, k, v)
         return flash_attention(q, k, v, causal=causal, window=window)
+    return _attention_torch(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, softcap=softcap)
+
+
+def _attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: int | None, q_offset: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """The dense math, in q-chunks above ``_CHUNK_THRESHOLD`` score
+    elements."""
+    sq, sk = q.shape[1], k.shape[1]
     if sq * sk < _CHUNK_THRESHOLD or sq <= _Q_CHUNK or sq % _Q_CHUNK:
         return _attention_dense(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, softcap=softcap)

@@ -28,7 +28,9 @@ and the RG-LRU kernel in the recurrent blocks; decode (S=1, state carried
 in ``h0``) is plain PyTorch.  ``self_attn`` and ``rglru_fn``
 (forward/prefill) replace the two prefill kernels with other functions of
 the same signatures, e.g. their plain versions, so one run can hold the
-kernel path against them.
+kernel path against them.  ``cfg.remat == "full"`` checkpoints each
+super-block and each tail block of forward and prefill
+(``layers.maybe_remat``), the reference's scan bodies.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, TreeBuilder
+from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
 from repro_torch.models.transformer import unembed
 
 CONV_W = 4
@@ -100,12 +102,6 @@ def init(cfg: ModelConfig, generator: torch.Generator | None,
     if not cfg.tie_embeddings:
         tb.leaf("unembed", (cfg.d_model, cfg.padded_vocab), scale=0.02)
     return tb.build()
-
-
-def _index(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a group of stacked params (nested dicts)."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -193,18 +189,26 @@ def _trunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                              cfg.rope_theta)
     attn = self_attn or L.attention
     ns, n_tail = n_supers(cfg)
+    super_block = L.maybe_remat(_super_block, cfg.remat)
+    rec_block = L.maybe_remat(_rec_block, cfg.remat)
     supers, tails = [], []
-    for i in range(ns):
-        lp = _index(params["supers"], i)
-        x, st1 = _rec_block(cfg, lp["rec1"], x, rglru_fn=rglru_fn)
-        x, st2 = _rec_block(cfg, lp["rec2"], x, rglru_fn=rglru_fn)
-        x, (k, v) = _attn_block(cfg, lp["attn"], x, cos, sin, attn)
-        supers.append((st1, st2, k, v))
-    for i in range(n_tail):
-        x, st = _rec_block(cfg, _index(params["tail"], i), x,
-                           rglru_fn=rglru_fn)
+    for lp in unstack(params["supers"], ns):
+        x, st = super_block(cfg, lp, x, cos, sin, attn, rglru_fn)
+        supers.append(st)
+    for lp in unstack(params.get("tail", {}), n_tail):
+        x, st = rec_block(cfg, lp, x, rglru_fn=rglru_fn)
         tails.append(st)
     return L.rms_norm(x, params["final_norm"]), supers, tails
+
+
+def _super_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor,
+                 self_attn: L.SelfAttention, rglru_fn: L.RglruScan | None):
+    """(rglru, rglru, attn).  Returns (x', (rec1 state, rec2 state, k, v))."""
+    x, st1 = _rec_block(cfg, lp["rec1"], x, rglru_fn=rglru_fn)
+    x, st2 = _rec_block(cfg, lp["rec2"], x, rglru_fn=rglru_fn)
+    x, (k, v) = _attn_block(cfg, lp["attn"], x, cos, sin, self_attn)
+    return x, (st1, st2, k, v)
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -299,8 +303,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         torch.as_tensor(pos, device=token.device).reshape(1), cfg.hd,
         cfg.rope_theta)
     ns, n_tail = n_supers(cfg)
-    for i in range(ns):
-        lp = _index(params["supers"], i)
+    for i, lp in enumerate(unstack(params["supers"], ns)):
         x = _rec_step(cfg, lp["rec1"], x, cache["rec1"], i)
         x = _rec_step(cfg, lp["rec2"], x, cache["rec2"], i)
         q, k, v = _qkv(cfg, lp["attn"], x, cos[None], sin[None])
@@ -310,8 +313,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             q, cache["k"][i].transpose(0, 1), cache["v"][i].transpose(0, 1),
             n_valid)    # the ring buffer already bounds the window
         x = _attn_out(cfg, lp["attn"], x, o)
-    for i in range(n_tail):
-        x = _rec_step(cfg, _index(params["tail"], i), x, cache["tail"], i)
+    for i, lp in enumerate(unstack(params.get("tail", {}), n_tail)):
+        x = _rec_step(cfg, lp, x, cache["tail"], i)
     x = L.rms_norm(x[:, 0], params["final_norm"])
     cache["len"] = n + 1
     return unembed(cfg, params, x), cache

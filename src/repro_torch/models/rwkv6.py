@@ -26,7 +26,8 @@ kernel's plain version, the exact per-step scan.  Decode (S=1, state
 carried in) runs one step of the recurrence (``layers.rwkv6_step``) on w
 clipped at the same floor.  ``wkv_fn`` (forward/prefill) replaces the
 kernel with another function of its signature, e.g. its plain version, so
-one run can hold the kernel path against it.
+one run can hold the kernel path against it.  ``cfg.remat == "full"``
+checkpoints each layer of forward and prefill (``layers.maybe_remat``).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, TreeBuilder
-from repro_torch.models.transformer import layer_params, unembed
+from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
+from repro_torch.models.transformer import unembed
 
 LORA_R = 32          # low-rank size of the ddlerp/decay LoRAs
 WKV_FLOOR = 1e-8     # the reference's clip of w (its chunked form's)
@@ -181,9 +182,10 @@ def _trunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Embedding through the final norm.  Returns (x (B,S,D), per-layer
     (tm_state, tm_last, cm_last))."""
     x = params["embed"]["table"][tokens].to(cfg.activation_dtype)
+    layer = L.maybe_remat(_layer, cfg.remat)
     states = []
-    for i in range(cfg.n_layers):
-        x, st = _layer(cfg, layer_params(params, i), x, wkv_fn=wkv_fn)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x, st = layer(cfg, lp, x, wkv_fn=wkv_fn)
         states.append(st)
     return L.rms_norm(x, params["final_norm"]), states
 
@@ -235,9 +237,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
     """token: (B,) int.  Writes every layer's state in place."""
     x = params["embed"]["table"][token].to(cfg.activation_dtype)[:, None]
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         x, (st, tm_last, cm_last) = _layer(
-            cfg, layer_params(params, i), x, tm_state=cache["tm_state"][i],
+            cfg, lp, x, tm_state=cache["tm_state"][i],
             tm_prev=cache["tm_prev"][i], cm_prev=cache["cm_prev"][i])
         cache["tm_state"][i] = st
         cache["tm_prev"][i] = tm_last

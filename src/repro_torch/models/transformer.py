@@ -18,7 +18,9 @@ PLACE (the reference returns a fresh cache); it returns the same dict with
 
 ``self_attn`` (forward/prefill) replaces the prefill self-attention with
 another function of the same signature, e.g. the kernel's plain version,
-so one run can hold the kernel path against it.  MoE is not ported yet.
+so one run can hold the kernel path against it.  ``cfg.remat == "full"``
+checkpoints each layer (``layers.maybe_remat``), as the reference does
+around its scan body.  MoE is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, TreeBuilder
+from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
 
 
 def _no_moe(cfg: ModelConfig) -> None:
@@ -77,11 +79,6 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor
     return L.rms_norm(x, scale)
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i`` of the stacked ``layers/*`` params."""
-    return {name: t[i] for name, t in params["layers"].items()}
-
-
 def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor
              ) -> torch.Tensor:
     dt = x.dtype
@@ -127,9 +124,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     cos, sin = L.rope_angles(torch.arange(s, device=tokens.device), cfg.hd,
                              cfg.rope_theta)
     attn = self_attn or L.attention
+    layer = L.maybe_remat(_layer, cfg.remat)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, k, v = _layer(cfg, layer_params(params, i), x, cos, sin, attn)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x, k, v = layer(cfg, lp, x, cos, sin, attn)
         if collect_cache:
             ks.append(k.transpose(0, 1))
             vs.append(v.transpose(0, 1))
@@ -196,8 +194,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     cos, sin = L.rope_angles(
         torch.as_tensor(pos, device=token.device).reshape(1), hd,
         cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         h = _norm(cfg, x, lp["attn_norm"])
         q = (h @ lp["wq"].to(dt)).reshape(b, 1, cfg.n_heads, hd)
         k = (h @ lp["wk"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)

@@ -40,6 +40,12 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     return module_for(cfg).init(cfg, generator, dev)
 
 
+def needs_frontend(cfg: ModelConfig) -> bool:
+    """Whether the family takes frontend (modality) tokens: vlm and audio,
+    none of the ported families."""
+    return cfg.family in ("vlm", "audio")
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, **kw):
     """batch: tokens (B,S). Returns (logits, aux_loss)."""
     return module_for(cfg).forward(cfg, params, batch, **kw)
@@ -60,11 +66,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, **kw):
     """Next-token cross-entropy (+ MoE aux).  batch needs "tokens" and
     "targets", optionally "mask".  The true-class logit comes from a
-    one-hot contraction, as in the reference."""
-    logits, aux = forward(cfg, params, batch)
+    one-hot contraction, as in the reference.  ``kw`` goes to ``forward``
+    (e.g. ``self_attn``, to hold the kernel path against the plain one)."""
+    logits, aux = forward(cfg, params, batch, **kw)
     targets = batch["targets"]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)

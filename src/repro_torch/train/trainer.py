@@ -1,0 +1,174 @@
+"""Train-step builder with gradient accumulation, per-layer remat,
+gradient compression and AdamW.
+
+Port of ``repro.train.trainer``.  ``make_train_step`` builds the
+(state, batch) -> (state, metrics) function the launcher drives:
+
+* microbatch gradient accumulation: the batch's leading dim is reshaped
+  to (n_micro, B/n_micro) and a Python loop takes the place of the
+  reference's ``lax.scan``; gradients are summed in ``accum_dtype``;
+* ``remat=True`` sets ``cfg.remat = "full"``, which checkpoints every
+  layer of the forward (``torch.utils.checkpoint``), as the reference's
+  ``jax.checkpoint`` around its scan bodies;
+* gradient compression with error feedback before the optimizer, when
+  the state holds "error";
+* AdamW with schedule and global-norm clip (``repro_torch.optim``).
+
+The train state is a plain dict {params, opt, error?} so checkpointing
+stays structural.  The step returns a new state and leaves the old one as
+it is; the metrics are 0-d tensors on the params' device (no host sync).
+Sharding of the batch and of the state waits for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable
+
+import torch
+
+from repro_torch.models import zoo
+from repro_torch.models.common import (ModelConfig, Params, torch_dtype,
+                                       tree_leaves, tree_map)
+from repro_torch.optim import (AdamWConfig, CompressionConfig,
+                               abstract_opt_state, adamw_update, compress,
+                               init_error_state, init_opt_state)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    remat: bool = True
+    remat_policy: str = "dots"       # kept for equality with the reference's
+                                     # config; neither train step reads it
+    accum_dtype: str = "float32"     # grad-accumulator dtype
+    aux_weight: float = 0.01
+    optimizer: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    compression: CompressionConfig = dataclasses.field(
+        default_factory=CompressionConfig)
+
+
+def _has_error(tcfg: TrainConfig) -> bool:
+    return tcfg.compression.scheme != "none" and tcfg.compression.ef
+
+
+def init_state(cfg: ModelConfig, tcfg: TrainConfig,
+               generator: torch.Generator | None = None, *,
+               device: str | torch.device = "cuda") -> dict:
+    """Params drawn from ``generator`` (on ``device``, as ``zoo.init``),
+    zero moments and, with error feedback, a zero error."""
+    params = zoo.init(cfg, generator, device=device)
+    state = {"params": params,
+             "opt": init_opt_state(tcfg.optimizer, params)}
+    if _has_error(tcfg):
+        state["error"] = init_error_state(params)
+    return state
+
+
+def abstract_state(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
+    """``init_state``'s tree on the ``meta`` device: shapes and dtypes."""
+    params = zoo.init(cfg, device="meta")
+    state = {"params": params,
+             "opt": abstract_opt_state(tcfg.optimizer, params)}
+    if _has_error(tcfg):
+        state["error"] = tree_map(
+            lambda _, p: torch.empty(p.shape, dtype=torch.float32,
+                                     device="meta"), params)
+    return state
+
+
+def _unflatten_like(tree: Params, leaves) -> Params:
+    it = iter(leaves)
+    return tree_map(lambda _, __: next(it), tree)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    batch_axes: tuple[str, ...] | None = None
+                    ) -> Callable[[dict, dict], tuple[dict, dict]]:
+    """``batch`` is a dict of (B, ...) tensors ("tokens", "targets",
+    optionally "mask") on the params' device, B a multiple of
+    ``tcfg.microbatches``.  Metrics: loss, lr, grad_norm (and
+    compression_ratio with compression)."""
+    if batch_axes:
+        raise NotImplementedError(
+            "make_train_step: batch_axes (a sharded batch) waits for the "
+            "port's multi-device slice; see ROADMAP.md")
+    n_micro = tcfg.microbatches
+    # per-LAYER remat: checkpointing the whole loss would still keep every
+    # layer's backward residuals
+    if tcfg.remat:
+        cfg = dataclasses.replace(cfg, remat="full")
+    acc_dt = torch_dtype(tcfg.accum_dtype)
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        leaves = tree_map(lambda _, p: p.detach().requires_grad_(True),
+                          params)
+        flat = tree_leaves(leaves)
+
+        def reshape_micro(x):
+            b = x.shape[0]
+            if b % n_micro:
+                raise ValueError(f"batch {b} is not a multiple of "
+                                 f"{n_micro} microbatches")
+            return x.reshape(n_micro, b // n_micro, *x.shape[1:])
+
+        micro = {k: reshape_micro(v) for k, v in batch.items()}
+        gsum = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                for p in flat]
+        lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        for i in range(n_micro):
+            mb = {k: v[i] for k, v in micro.items()}
+            loss, _ = zoo.loss_fn(cfg, leaves, mb,
+                                  aux_weight=tcfg.aux_weight)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True)
+            with torch.no_grad():
+                for acc, g in zip(gsum, grads):
+                    acc.add_(g.to(acc_dt))
+                lsum = lsum + loss.detach()
+            del loss, grads
+        with torch.no_grad():
+            grads = _unflatten_like(params, [(g.float() / n_micro).to(acc_dt)
+                                             for g in gsum])
+        del gsum
+        loss = lsum / n_micro
+
+        metrics = {"loss": loss}
+        if "error" in state:
+            grads, new_error, cm = compress(tcfg.compression, grads,
+                                            state["error"])
+            metrics.update(cm)
+        new_params, new_opt, om = adamw_update(tcfg.optimizer, grads,
+                                               state["opt"], params)
+        metrics.update(om)
+        new_state = {"params": new_params, "opt": new_opt}
+        if "error" in state:
+            new_state["error"] = new_error
+        return new_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig):
+    @torch.no_grad()
+    def eval_step(state: dict, batch: dict) -> dict:
+        loss, metrics = zoo.loss_fn(cfg, state["params"], batch,
+                                    aux_weight=tcfg.aux_weight)
+        return {"loss": loss, **metrics}
+    return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int):
+    @torch.no_grad()
+    def prefill_step(params: dict, batch: dict):
+        return zoo.prefill(cfg, params, batch, max_len)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: (params, cache, token, pos) -> (logits, cache)."""
+    @torch.no_grad()
+    def serve_step(params: dict, cache: dict, token, pos):
+        return zoo.decode_step(cfg, params, cache, token, pos)
+    return serve_step

@@ -1,5 +1,10 @@
 """The port on a CUDA card: the flash attention, RG-LRU and WKV6 kernels
-against their plain versions, and the serving paths through the kernels.
+against their plain versions, the serving paths through the kernels, the
+gradients through the kernels' autograd Functions against the CPU plain
+path, one olmo-1b smoke train step on the card against the same step on
+the CPU, and a smoke run on the card through ``run_with_recovery`` with a
+failure after a save, which must restore onto the card and end in the
+uninterrupted run's state.
 
 Every test here is marked ``cuda`` and skips without a card; the file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -17,8 +22,13 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 from repro_torch.kernels.rglru import rglru, rglru_plain
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
-from repro_torch.models import zoo
+from repro_torch.models import layers, zoo
+from repro_torch.models.common import tree_leaves
+from repro_torch.optim import AdamWConfig
 from repro_torch.serving import Request, ServeEngine
+from repro_torch.data import DataConfig, make_source
+from repro_torch.train import (CheckpointManager, TrainConfig, init_state,
+                               make_train_step, run_with_recovery)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -206,3 +216,151 @@ def test_rwkv6_serving_goes_through_the_kernel(cuda_device):
     # one launch per layer and prefill, none in decode
     assert eng.prefill_calls == 3
     assert wkv6.launches - before == 24 * 3
+
+
+# gradients through the kernel paths (float32), each input's largest gap
+# over its largest |g| on the CPU plain path: the kernels' forward errors
+# (at most 2e-5, see TOL) and the card's other summation orders in the
+# recomputed backward
+GRAD_RTOL = 1e-4
+
+
+def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def _kernel_inputs(kernel, gen):
+    if kernel == "flash_attention":     # olmo-1b heads, a window
+        shapes = [(2, 96, 16, 128), (2, 96, 16, 128), (2, 96, 16, 128)]
+        ins = [torch.randn(sh, generator=gen) for sh in shapes]
+    elif kernel == "rglru":
+        a = 0.001 + 0.9985 * torch.rand((2, 64, 256), generator=gen)
+        ins = [a, torch.randn((2, 64, 256), generator=gen)]
+    else:                                # (B,H,S,D), decays near the floor
+        ins = [torch.randn((2, 4, 64, 64), generator=gen) for _ in range(3)]
+        ins.append(torch.exp(-torch.exp(-8.0 + 11.5 * torch.rand(
+            (2, 4, 64, 64), generator=gen))))
+        ins.append(0.5 * torch.randn((4, 64), generator=gen))
+    return ins
+
+
+def _kernel_call(kernel, ins):
+    if kernel == "flash_attention":
+        return (layers.attention(*ins, causal=True, window=48),)
+    if kernel == "rglru":
+        return rglru(*ins)
+    return wkv6(*ins, floor=1e-8)
+
+
+@pytest.mark.parametrize("kernel", [flash_attention, rglru, wkv6],
+                         ids=lambda k: k.__name__)
+def test_kernel_gradients_match_cpu_plain(cuda_device, kernel):
+    name = kernel.__name__
+    gen = torch.Generator().manual_seed(0)
+    ins = _kernel_inputs(name, gen)
+    outs = _kernel_call(name, [t.requires_grad_(True) for t in ins])
+    cots = [torch.randn(o.shape, generator=gen) for o in outs]
+    want = torch.autograd.grad(outs, ins, cots)
+    dev_ins = [t.detach().to(cuda_device).requires_grad_(True) for t in ins]
+    before = kernel.launches
+    dev_outs = _kernel_call(name, dev_ins)
+    assert kernel.launches == before + 1
+    got = torch.autograd.grad(dev_outs, dev_ins,
+                              [c.to(cuda_device) for c in cots])
+    # every input gets a gradient, and it is the plain path's
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g is not None and g.device.type == "cuda", (name, i)
+        assert _rel_gap(g, w) <= GRAD_RTOL, (name, i, _rel_gap(g, w))
+
+
+def test_smoke_train_step_on_cuda_matches_cpu(cuda_device):
+    cfg = get_config("olmo-1b", smoke=True)
+    tcfg = TrainConfig(microbatches=2, remat=True, optimizer=AdamWConfig(
+        lr=5e-3, total_steps=10, warmup_steps=1))
+    cpu_state = init_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    dev_state = _to(cpu_state, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 32)))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+    step = make_train_step(cfg, tcfg)
+    cpu_new, cpu_m = step(cpu_state, batch)
+    before = flash_attention.launches
+    dev_new, dev_m = step(dev_state, _to(batch, cuda_device))
+    # 2 layers x 2 microbatches x (forward + remat recompute)
+    assert flash_attention.launches - before == 8
+    for name in ("loss", "lr", "grad_norm"):
+        np.testing.assert_allclose(float(dev_m[name]), float(cpu_m[name]),
+                                   rtol=GRAD_RTOL, err_msg=name)
+    for part in ("mu", "nu"):
+        for got, want in zip(tree_leaves(dev_new["opt"][part]),
+                             tree_leaves(cpu_new["opt"][part])):
+            if want.abs().max() > 0:
+                assert _rel_gap(got, want) <= GRAD_RTOL, part
+    # Adam's first step is about lr * sign(g): compare the params where g
+    # is far above the two devices' gradient gap, or zero on both
+    for mu_d, mu_c, p_d, p_c in zip(
+            tree_leaves(dev_new["opt"]["mu"]),
+            tree_leaves(cpu_new["opt"]["mu"]),
+            tree_leaves(dev_new["params"]), tree_leaves(cpu_new["params"])):
+        mu_d = mu_d.cpu()
+        gap = (mu_d - mu_c).abs().max()
+        stable = (mu_c.abs() >= 100 * gap) | ((mu_c == 0) & (mu_d == 0))
+        assert stable.float().mean() >= 0.9
+        err = (p_d.cpu() - p_c).abs()[stable].max()
+        assert err <= 1e-6 * p_c.abs().max(), float(err)
+
+
+def test_recovery_on_cuda_ends_in_the_uninterrupted_state(cuda_device,
+                                                         tmp_path):
+    cfg = get_config("olmo-1b", smoke=True)
+    tcfg = TrainConfig(microbatches=2, remat=True, optimizer=AdamWConfig(
+        lr=5e-3, total_steps=10, warmup_steps=1))
+    step_fn = make_train_step(cfg, tcfg)
+    source = make_source(DataConfig(seq_len=32, global_batch=4,
+                                    vocab=cfg.vocab))
+    fails = {"left": 0}
+
+    class Prefetch:           # what run_with_recovery reads of a prefetcher
+        pass
+
+    prefetch = Prefetch()
+    prefetch.source = source
+
+    def wrapped(state, batch, step):
+        if step == 3 and fails["left"]:
+            fails["left"] -= 1
+            raise RuntimeError("injected failure")
+        return step_fn(state, {k: torch.as_tensor(v, device=cuda_device)
+                               for k, v in batch.items()})
+
+    finals = []
+    for n in range(2):
+        fails["left"] = n          # first run uninterrupted, then one failure
+        state = init_state(cfg, tcfg, torch.Generator(
+            device=cuda_device).manual_seed(0), device=cuda_device)
+        manager = CheckpointManager(str(tmp_path / str(n)),
+                                    device=cuda_device)
+        state, stats = run_with_recovery(
+            step_fn=wrapped, state=state, n_steps=4, save_every=2,
+            manager=manager, data_prefetch=prefetch)
+        assert (stats.failures, stats.restores, stats.steps_replayed) == (
+            (0, 0, 0) if n == 0 else (1, 1, 1))
+        finals.append(_flat(state))
+    for path, t in finals[0].items():
+        assert finals[1][path].device.type == cuda_device.type, path
+        assert torch.equal(finals[1][path], t), path
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
