@@ -17,8 +17,10 @@ Phases, one JSON line each:
              S=1, every tile class of the bf16 TMA/wgmma kernel (S=192, not
              a multiple of its 128 query rows; S=37, under one 64-key tile;
              a window of 40, under one k-tile; D=64 MQA; D=256 causal with
-             no window) and the recurrentgemma-2b prefill shape (D=256, MQA
-             10/1, window 2048, S=2600); RG-LRU (``rglru_plain``) at the
+             no window), the recurrentgemma-2b prefill shape (D=256, MQA
+             10/1, window 2048, S=2600), the mixtral-8x7b prefill shape
+             (B=4, S=4093, GQA 32/8, window 4096) and S=6000 under that
+             window (the window binds); RG-LRU (``rglru_plain``) at the
              recurrentgemma-2b prefill shape, its longest B=1 re-prefill
              (S=2382), a ragged S=300, S=1, a=1e-6 and R=130 (copied
              element by element); WKV6 (``wkv6_plain``) at the rwkv6-1.6b
@@ -64,7 +66,24 @@ Phases, one JSON line each:
              0.02), ``tm_mu`` and ``cm_mu`` ~ U(0, 1), ``u`` ~ N(0, 0.5).
              Its compared prefills also hold every WKV6 call against
              ``wkv6_plain`` on that call's own inputs (``HeldPerCall``).
-  8. train   olmo-1b at full width trained by ``make_train_step``:
+  8. slice   granite-3-8b at full width and depth (40 layers, GQA 32 on
+             8 kv heads, 8.37e9 params), the same way: 8 requests of 64-1024
+             prompt tokens on 4 slots, 16 new tokens each; its bf16
+             logits within sqrt(2) times the plain path's own bf16 error
+             (two independent bf16 roundings of one size, 40 layers deep),
+             and each flash call of its compared prefills against
+             ``attention_plain`` on that call's own inputs;
+  9. slice   mixtral-8x7b at full width cut to 8 of its 32 layers (MoE
+             top-2 of 8 experts, window 4096, 11.87e9 params), the same
+             way: ``max_len`` 8192, a first wave of 64-1024 prompt tokens
+             and a second of 1500-4092 plus one of 4093 (the compared wave:
+             one MoE group a row, and decode wraps the window's ring buffer
+             after 3 tokens).  Each leaf is cast to bf16 as it is drawn
+             (``cast_as_you_go``).  Its compared prefills record every MoE
+             layer's routing (``RouteLog``): the line counts the tokens
+             whose top-2 experts differ between the kernel and plain paths,
+             each with its margin;
+  10. train  olmo-1b at full width trained by ``make_train_step``:
              random fp32 weights from seed 0, bf16 activations, AdamW
              (fp32 moments, lr 1e-4 from its first step), ``remat=True``,
              2 microbatches, 4 steps on one fixed ``SyntheticLM`` batch of
@@ -76,23 +95,38 @@ Phases, one JSON line each:
              x (forward + remat recompute) x 4 steps = 256); then a fifth
              step under ``torch.profiler`` (``train_kernels``: device time
              by group of kernels, the largest kernels);
-  9. train_grad  one fp32 microbatch of olmo-1b at full width (B=1,
+  11. train_grad  one fp32 microbatch of olmo-1b at full width (B=1,
              S=512, TF32 off): the loss's gradients through the kernel
              path against the same with ``self_attn=attention_plain``,
              per leaf within 1e-3 of the leaf's largest |g|; with bf16
-             activations held as the slices hold bf16 logits.
+             activations held as the slices hold bf16 logits;
+  12. train_moe  mixtral-8x7b at full width cut to 1 layer, trained the
+             same way (1 microbatch of B=2, S=2048, 3 steps, same lr and
+             warm-up): step times, tokens/s, the bf16 peak share of
+             6 * active params * tokens, the losses, ce and aux of one
+             ``loss_fn`` call after the steps, the router's gradient norm
+             (non-zero), peak memory and flash's launches (1 layer x 2 x 3
+             steps = 6), then a traced step; then the same steps once more
+             from the same weights with ``attention_plain`` in place of the
+             kernel (``plain_attention_witness``: its losses, grad norms,
+             ce and aux), to rule the kernel in or out of what the routing
+             does.  2 layers do not fit: the step holds the old and the new
+             state at once (see ``MOE_TRAIN_LAYERS``).
 Each slice zeroes every kernel's launch counter just before it serves and
 reads them just after; then runs its 8 prefill calls once more (the same
 waves, one new token each, so no decode) under ``torch.profiler`` and
 prints a ``slice_kernels`` line: per kernel its launches, summed device
-time and share of all device time in those calls; and holds a wave's
-prefill logits (and, for rwkv6-1.6b, its ``tm_state``) against the same
-prefill through the kernels' plain versions, in fp32 and in bf16.  Then
-the ``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b
-train path's included; each kernel's largest error against its plain
-version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
-largest ratio of the error to that bound; for the recurrences also their
-B=1 numbers, ``at_b1``), the ``nvidia-smi`` line and, last,
+time and share of all device time in those calls, and all of it by group
+of kernels (``KERNEL_GROUPS``); and holds a wave's prefill logits (and,
+for rwkv6-1.6b, its ``tm_state``; for rwkv6-1.6b and granite-3-8b also
+each kernel call on its own inputs) against the same prefill through the
+kernels' plain versions, in fp32 and in bf16.  Then the
+``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b and
+mixtral-8x7b train paths' included; each kernel's largest error against
+its plain version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
+largest ratio of the error to that bound; flash's times also at D=256 and
+at the mixtral-8x7b prefill, for the recurrences their B=1 numbers,
+``at_b1``), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero with its traceback.  Without CUDA it exits 2 and prints no
 result.
@@ -100,6 +134,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -155,9 +190,12 @@ KERNEL_SHAPES = [
     ("D=64 MQA", 1, 200, 8, 1, 64, None),
     ("D=256 causal", 2, 640, 8, 1, 256, None),
     ("recurrentgemma-2b prefill", 4, 2600, 10, 1, 256, 2048),
+    ("mixtral-8x7b prefill", 4, 4093, 32, 8, 128, 4096),
+    ("window 4096 binds, S=6000", 1, 6000, 32, 8, 128, 4096),
 ]
-# the flash shapes that are timed: the two main paths'
-FLASH_TIMED = ("olmo-1b prefill", "recurrentgemma-2b prefill")
+# the flash shapes that are timed: the main paths'
+FLASH_TIMED = ("olmo-1b prefill", "recurrentgemma-2b prefill",
+               "mixtral-8x7b prefill")
 # the recurrences' timed shapes: the B=4 wave prefill and the longest B=1
 # exact re-prefill that the slice runs (the served paths mostly run B=1)
 RGLRU_TIMED = ("recurrentgemma-2b prefill", "recurrentgemma-2b re-prefill")
@@ -174,6 +212,15 @@ GRAD_SHAPES = {"flash_attention": (2, 256, 16, 16, 128),
 # (PERF.md, section 6)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 4
 TRAIN_LR = 1e-4
+# the mixtral-8x7b train phase: full width, B=2 sequences of S=2048 in one
+# microbatch, 3 steps on one fixed batch, the olmo phase's lr and warm-up.
+# Depth 1 of 32: the step keeps the old state while it builds the new one
+# (params, mu and nu twice) and holds the gradients and their clipped copy,
+# so 2 layers (3.165e9 params: 38 GB of fp32 state) would peak near 101 GB
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 1, 2, 3
+# the mixtral-8x7b serving slice's depth: 8 of 32 layers (11.87e9 params,
+# 23.7 GB in bf16; the full 32 would be 93.4 GB)
+MOE_SERVE_LAYERS = 8
 # the train_grad check: one fp32 microbatch of olmo-1b, B=1, S=512
 TRAIN_GRAD_SEQ = 512
 L2_FLUSH_BYTES = 128 << 20    # written between cold launches; L2 is 50 MB
@@ -461,7 +508,8 @@ def time_flash(gen, dev, name, max_err) -> dict:
     dtype (bf16): warm (``ms``, the kernel row's number) and with L2
     flushed (``cold_ms``); the yardstick is
     ``scaled_dot_product_attention`` on the same inputs (GQA through
-    ``enable_gqa``; a window through a boolean mask)."""
+    ``enable_gqa``; a window that binds, shorter than S, through a boolean
+    mask)."""
     import torch
     import torch.nn.functional as F
 
@@ -485,7 +533,9 @@ def time_flash(gen, dev, name, max_err) -> dict:
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True,
                                                window=window), iters=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if window is None:
+    if window is None or window >= s:
+        # a window no shorter than S masks nothing beyond causality: the
+        # causal call (flash backend) computes the same function
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=kh != h))
     else:
@@ -640,11 +690,13 @@ def draw_rwkv6_leaves(params: dict, gen) -> None:
     lp["u"].normal_(0.0, 0.5, generator=gen)
 
 
-def held_to_plain(name: str, out, plain, out32, plain32) -> dict:
+def held_to_plain(name: str, out, plain, out32, plain32, *,
+                  own_factor: float = 1.0) -> dict:
     """One prefill output, kernel path against plain path: in fp32 within
     1e-3 of the largest plain value; in bf16 within 2e-2 of it or, failing
-    that, no further than the bf16 plain path's own error against fp32,
-    and never further than OWN_FRAC of the largest plain value."""
+    that, no further than ``own_factor`` times the bf16 plain path's own
+    error against fp32, and never further than OWN_FRAC of the largest
+    plain value."""
     out, plain = out.float(), plain.float()
     err32 = float((out32 - plain32).abs().max())
     tol32 = LOGIT_RTOL["float32"] * float(plain32.abs().max())
@@ -653,12 +705,14 @@ def held_to_plain(name: str, out, plain, out32, plain32) -> dict:
     tol = LOGIT_RTOL["bfloat16"] * largest
     own = float((plain - plain32).abs().max())
     own_cap = OWN_FRAC * largest
+    own_bound = own_factor * own
     return {f"fp32_{name}_max_abs_err_vs_plain": err32,
             f"fp32_{name}_tol": tol32,
             f"{name}_max_abs_err_vs_plain": err, f"{name}_tol": tol,
             f"plain_bf16_{name}_err_vs_fp32": own,
+            f"{name}_own_factor": own_factor,
             f"{name}_own_clause_cap": own_cap,
-            "ok": err32 <= tol32 and err <= max(tol, min(own, own_cap))}
+            "ok": err32 <= tol32 and err <= max(tol, min(own_bound, own_cap))}
 
 
 class HeldPerCall:
@@ -672,9 +726,19 @@ class HeldPerCall:
     64-term sums of r^T S alone moves an fp32 output by more than the
     kernel tests' 3e-4, which were set for inputs of order one."""
 
+    arg = "wkv_fn"        # the prefill keyword it is passed as
+
     def __init__(self):
         self.calls = 0
         self.worst = {}   # "dtype/array" -> ``held`` of its worst call
+
+    def record(self, key: str, got, want, atol: float, rtol: float) -> None:
+        """Keep ``held(got, want)`` under ``key`` if it is the worst yet."""
+        h_ = {**held(got, want, atol, rtol), "call": self.calls,
+              "abs_max": float(want.float().abs().max())}
+        if h_["max_err_ratio"] >= self.worst.get(
+                key, {"max_err_ratio": -1.0})["max_err_ratio"]:
+            self.worst[key] = h_
 
     def __call__(self, r, k, v, w, u, *, floor):
         from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
@@ -686,14 +750,124 @@ class HeldPerCall:
             largest = float(want.float().abs().max())
             atol, rtol = (WKV6_TOL[dn] if dn == "bfloat16" else
                           (LOGIT_RTOL[dn] * largest, 0.0))
-            h_ = {**held(got, want, atol, rtol), "call": self.calls,
-                  "abs_max": largest}
-            key = f"{dn}/{name}"
-            if h_["max_err_ratio"] >= self.worst.get(
-                    key, {"max_err_ratio": -1.0})["max_err_ratio"]:
-                self.worst[key] = h_
+            self.record(f"{dn}/{name}", got, want, atol, rtol)
         self.calls += 1
         return out, state
+
+
+class HeldFlashPerCall(HeldPerCall):
+    """A ``self_attn`` for the compared kernel-path prefills: it launches
+    the flash kernel and holds each call against ``attention_plain`` on
+    the same inputs, at the kernel phase's tolerance (``TOL``), before the
+    layers compound the bf16 rounding: the kernel's evidence call by call,
+    beside the model-level logits."""
+
+    arg = "self_attn"
+
+    def __call__(self, q, k, v, *, causal, window):
+        from repro_torch.kernels.flash_attention import (attention_plain,
+                                                         flash_attention)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        dn = dtype_name(q.dtype)
+        self.record(dn, out, attention_plain(q, k, v, causal=causal,
+                                             window=window), TOL[dn], TOL[dn])
+        self.calls += 1
+        return out
+
+
+class RouteLog:
+    """The routing of every MoE layer in the compared prefills.  While
+    ``run(key)`` is open, ``layers.moe_block`` is wrapped so that each call
+    keeps its router probs (B,S,E) and top-k expert indices (B,S,k), as
+    ``layers.moe_route`` gives them.  The kernel path and the plain path
+    differ by rounding, so a token whose experts are nearly tied can route
+    differently in the two and move its logits by a discrete step:
+    ``flips`` counts them."""
+
+    def __init__(self):
+        self.calls = {}
+
+    @contextlib.contextmanager
+    def run(self, key: str):
+        from repro_torch.models import layers
+        block = layers.moe_block
+        calls = self.calls.setdefault(key, [])
+
+        def recorded(p, x, *, n_experts, top_k, capacity_factor):
+            probs, _, idx = layers.moe_route(p, x, top_k)
+            calls.append((probs, idx))
+            return block(p, x, n_experts=n_experts, top_k=top_k,
+                         capacity_factor=capacity_factor)
+
+        layers.moe_block = recorded
+        try:
+            yield
+        finally:
+            layers.moe_block = block
+
+    def flips(self, a: str, b: str, limit: int = 16) -> dict:
+        """Tokens whose ordered top-k experts differ between runs ``a`` and
+        ``b``, layer by layer.  For each flip its margin in run ``b``: the
+        k-th largest prob less the (k+1)-th, and the smallest gap between
+        adjacent ones of its k+1 largest (an order flip within the top k).
+        Also the largest |probs_a - probs_b| over every token: the scale of
+        the two paths' rounding at the router."""
+        out, prob_gap = [], 0.0
+        for layer, ((pa, ia), (pb, ib)) in enumerate(zip(self.calls[a],
+                                                         self.calls[b])):
+            k = ib.shape[-1]
+            top = pb.sort(dim=-1, descending=True).values[..., :k + 1]
+            margin = top[..., k - 1] - top[..., k]
+            order_gap = (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+            prob_gap = max(prob_gap, float((pa - pb).abs().max()))
+            for row, tok in (ia != ib).any(dim=-1).nonzero().tolist():
+                out.append({"layer": layer, "row": row, "token": tok,
+                            "margin": float(margin[row, tok]),
+                            "order_gap": float(order_gap[row, tok])})
+        return {"calls": len(self.calls[b]), "flips": len(out),
+                "probs_max_abs_diff": prob_gap,
+                "largest_margin": max((f["margin"] for f in out),
+                                      default=None),
+                "first_flips": out[:limit]}
+
+
+def cast_as_you_go(params: dict, dtype) -> None:
+    """``cast_matrices`` in place, leaf by leaf: each leaf's cast replaces
+    it in the tree before the next is made, so a model's fp32 tree and its
+    bf16 copy never coexist on the card (mixtral-8x7b at 8 layers: 47.5 GB
+    and 23.7 GB)."""
+    from repro_torch.models.common import cast_matrices
+    for key, value in params.items():
+        if isinstance(value, dict):
+            cast_as_you_go(value, dtype)
+        else:
+            params[key] = cast_matrices({key: value}, dtype)[key]
+
+
+# groups of device kernels in a trace (a served slice's prefills or a train
+# step), by a substring of the kernel's name (the first that matches); the
+# rest is "other": PyTorch's elementwise and reduction kernels
+KERNEL_GROUPS = (
+    ("flash_attention", ("fa_fwd",)),
+    ("fp32 GEMM", ("f32f32", "sgemm", "gemmk1")),
+    ("bf16 GEMM", ("nvjet",)),
+    ("softmax", ("oftMax", "softmax")),
+    ("copy and cast", ("copy",)),
+    ("cumsum / scan over an outer dim", ("scan_outer_dim",)),
+)
+
+
+def kernel_groups(device: list) -> dict:
+    """The device time of trace events ``device`` by ``KERNEL_GROUPS``,
+    largest first, each with its share of all of it."""
+    total_ns = sum(e.duration_ns() for e in device)
+    groups = {}
+    for e in device:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in e.name() for k in keys)), "other")
+        groups[group] = groups.get(group, 0) + e.duration_ns()
+    return {g: {"device_ms": ns / 1e6, "share": ns / total_ns}
+            for g, ns in sorted(groups.items(), key=lambda kv: -kv[1])}
 
 
 # each kernel's symbol as a profiler trace names it (a substring)
@@ -751,14 +925,16 @@ def profile_prefills(cfg, params, prompts, *, max_len: int,
     result["largest_others"] = [
         {"name": n, "device_ms": ns / 1e6, "share": ns / total_ns}
         for n, ns in sorted(others.items(), key=lambda kv: -kv[1])[:5]]
+    result["groups"] = kernel_groups(device)
     emit(result)
     return result
 
 
 def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
                 compare_wave: int, plain_kw: dict, state: str | None = None,
-                draw_leaves=None, per_call: HeldPerCall | None = None
-                ) -> dict:
+                draw_leaves=None, per_call: HeldPerCall | None = None,
+                route_log: RouteLog | None = None,
+                bf16_own_factor: float = 1.0) -> dict:
     """Serve ``prompts`` (16 new tokens each) on 4 slots through the
     kernels, counting each kernel's launches; then hold wave
     ``compare_wave``'s prefill logits (and the cache leaf ``state``, if
@@ -766,12 +942,15 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     versions), in fp32 and in bf16.  ``draw_leaves(params, generator)``
     redraws leaves of the fresh params in place before the cast;
     ``per_call``, if given, is the compared kernel-path prefills'
-    ``wkv_fn``."""
+    ``wkv_fn`` or ``self_attn`` (its ``arg``); ``route_log``, if given,
+    records the MoE routing of the compared prefills and the line counts
+    its flips between the paths.  ``bf16_own_factor`` is the logits'
+    ``own_factor`` in ``held_to_plain``."""
     import numpy as np
     import torch
 
     from repro_torch.models import zoo
-    from repro_torch.models.common import cast_matrices, tree_leaves
+    from repro_torch.models.common import tree_leaves
     from repro_torch.serving import Request, ServeEngine
 
     t0 = time.perf_counter()
@@ -779,7 +958,7 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     params = zoo.init(cfg, gen, device=dev)
     if draw_leaves is not None:
         draw_leaves(params, gen)
-    params = cast_matrices(params, cfg.activation_dtype)
+    cast_as_you_go(params, cfg.activation_dtype)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     assert all(t.device.type == dev.type for t in tree_leaves(params))
@@ -831,11 +1010,12 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     # where they are used)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     runs = {}
-    kernel_kw = {} if per_call is None else {"wkv_fn": per_call}
+    kernel_kw = {} if per_call is None else {per_call.arg: per_call}
     for key, c, kw in (("kernel", cfg, kernel_kw), ("plain", cfg, plain_kw),
                        ("kernel32", cfg32, kernel_kw),
                        ("plain32", cfg32, plain_kw)):
-        lg, cache = zoo.prefill(c, params, batch, cache_len, **kw)
+        with route_log.run(key) if route_log else contextlib.nullcontext():
+            lg, cache = zoo.prefill(c, params, batch, cache_len, **kw)
         if "k" in cache:
             assert cache["k"].device.type == dev.type
             assert cache["k"].shape[1] == cache_len
@@ -851,7 +1031,8 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
                               and torch.isfinite(st).all())
     checks = {"logits": held_to_plain(
         "logits", *(runs[k][0] for k in ("kernel", "plain", "kernel32",
-                                         "plain32")))}
+                                         "plain32")),
+        own_factor=bf16_own_factor)}
     if state:
         checks[state] = held_to_plain(
             state, *(runs[k][1] for k in ("kernel", "plain", "kernel32",
@@ -866,6 +1047,7 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
         "phase": "slice", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model,
         "params": sum(t.numel() for t in tree_leaves(params)),
+        "active_params": cfg.active_param_count(),
         "init_s": init_s, "requests": len(done),
         "prompt_lens": [len(p) for p in prompts], "generated_tokens": tokens,
         "waves": len(engine.stats), "prefill_calls": engine.prefill_calls,
@@ -877,11 +1059,17 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
         "compared_cache_len": cache_len,
         **{k: v for c in checks.values() for k, v in c.items() if k != "ok"},
         "logits_abs_max": float(lg_plain.abs().max()),
+        "kernel_bf16_logits_err_vs_fp32": float((lg - lg32).abs().max()),
         "rows_with_clear_argmax": int(clear.sum()),
         "same_argmax_vs_plain": same_argmax}
     result["slice_kernels"] = kernels["kernels"]
     if per_call is not None:
         result["per_call"] = {"calls": per_call.calls, **per_call.worst}
+    if route_log is not None:
+        result["routing_flips_vs_plain"] = {
+            "bfloat16": route_log.flips("kernel", "plain"),
+            "float32": route_log.flips("kernel32", "plain32")}
+        route_log.calls.clear()
     emit(result)
     for name, c in checks.items():
         assert c["ok"], (name, c)
@@ -966,21 +1154,10 @@ def check_grads(gen, dev) -> dict:
     return out
 
 
-# groups of device kernels in a traced train step, by a substring of the
-# kernel's name (the first that matches)
-TRAIN_KERNEL_GROUPS = (
-    ("flash_attention", ("fa_fwd",)),
-    ("fp32 GEMM", ("f32f32", "sgemm", "gemmk1")),
-    ("bf16 GEMM", ("nvjet",)),
-    ("softmax", ("oftMax", "softmax")),
-    ("copy and cast", ("copy",)),
-)
 
-
-def profile_train_step(step, state, batch) -> dict:
+def profile_train_step(step, state, batch, arch: str) -> dict:
     """One more train step under ``torch.profiler`` with CUDA activity:
-    all device time, each group of ``TRAIN_KERNEL_GROUPS`` (the rest is
-    "other": PyTorch's elementwise and reduction kernels) and the largest
+    all device time, each group of ``KERNEL_GROUPS`` and the largest
     kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -994,17 +1171,11 @@ def profile_train_step(step, state, batch) -> dict:
               if str(e.device_type()).endswith("CUDA")]
     total_ns = sum(e.duration_ns() for e in device)
     assert device and total_ns > 0, "the trace shows no device activity"
-    groups, names = {}, {}
+    names = {}
     for e in device:
-        name = e.name()
-        group = next((g for g, keys in TRAIN_KERNEL_GROUPS
-                      if any(k in name for k in keys)), "other")
-        groups[group] = groups.get(group, 0) + e.duration_ns()
-        names[name[:80]] = names.get(name[:80], 0) + e.duration_ns()
-    return {"phase": "train_kernels", "device_ms": total_ns / 1e6,
-            "groups": {g: {"device_ms": ns / 1e6, "share": ns / total_ns}
-                       for g, ns in sorted(groups.items(),
-                                           key=lambda kv: -kv[1])},
+        names[e.name()[:80]] = names.get(e.name()[:80], 0) + e.duration_ns()
+    return {"phase": "train_kernels", "arch": arch,
+            "device_ms": total_ns / 1e6, "groups": kernel_groups(device),
             "largest": [{"name": n, "device_ms": ns / 1e6,
                          "share": ns / total_ns} for n, ns in sorted(
                 names.items(), key=lambda kv: -kv[1])[:8]]}
@@ -1057,7 +1228,7 @@ def train_olmo(dev) -> dict:
         metrics.append({k: float(v) for k, v in m.items()})
     launches = flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    kernels = profile_train_step(step, state, batch)
+    kernels = profile_train_step(step, state, batch, cfg.arch_id)
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
     median_s = statistics.median(times[1:])
@@ -1088,6 +1259,167 @@ def train_olmo(dev) -> dict:
     del state, batch
     torch.cuda.empty_cache()
     return result
+
+
+def train_moe(dev) -> dict:
+    """The train_moe phase: mixtral-8x7b at full width cut to
+    ``MOE_TRAIN_LAYERS`` of 32 layers (random fp32 weights from seed 0,
+    bf16 activations), AdamW with fp32 moments, ``remat=True``, one
+    microbatch of B=``MOE_TRAIN_BATCH``, S=``TRAIN_SEQ``, ``MOE_TRAIN_STEPS``
+    steps on one fixed ``SyntheticLM`` batch at the olmo phase's lr and
+    warm-up.  Flash's launch count is zeroed just before the steps and read
+    just after: layers x (forward + remat recompute) x steps.  ``loss_fn``
+    on the batch before the steps and after them (ce and aux: 1 for
+    balanced routing, E for all tokens on one expert), the router's
+    gradient norm from one more backward, and a traced step
+    (``train_kernels``); then ``moe_plain_witness``.
+    The loss need not fall (ROADMAP.md: the olmo-1b step-2 rise is not
+    explained); every loss and leaf must be finite and the router's
+    gradient non-zero."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    tcfg = TrainConfig(remat=True, optimizer=AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=MOE_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    active = cfg.active_param_count()
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=MOE_TRAIN_BATCH,
+                                    vocab=cfg.vocab))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in source.batch_at(0).items()}
+    step = make_train_step(cfg, tcfg)
+    rcfg = dataclasses.replace(cfg, remat="full")
+    with torch.no_grad():
+        _, first = zoo.loss_fn(rcfg, state["params"], batch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    flash_attention.launches = 0
+    times, metrics = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    params = {**state["params"], "layers": dict(state["params"]["layers"])}
+    with torch.no_grad():
+        loss, parts = zoo.loss_fn(rcfg, params, batch)
+    router = params["layers"]["router"].detach().requires_grad_(True)
+    params["layers"]["router"] = router
+    (g_router,) = torch.autograd.grad(zoo.loss_fn(rcfg, params, batch)[0],
+                                      [router])
+    router_grad_norm = float(g_router.norm())
+    del params, router, g_router
+    kernels = profile_train_step(step, state, batch, cfg.arch_id)
+
+    tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+    median_s = statistics.median(times[1:])
+    flops = 6.0 * active * tokens
+    losses = [m["loss"] for m in metrics]
+    finite = all(math.isfinite(v) for m in metrics for v in m.values()) \
+        and math.isfinite(float(loss)) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(state["params"]))
+    expected = cfg.n_layers * 2 * MOE_TRAIN_STEPS
+    result = {
+        "phase": "train_moe", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "experts": cfg.moe_experts,
+        "top_k": cfg.moe_top_k, "params": n_params, "active_params": active,
+        "batch": MOE_TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": 1,
+        "remat": True, "activations": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "moment_dtype": "float32",
+        "lr": TRAIN_LR, "init_s": init_s, "step_s": times,
+        "median_step_s_2_to_3": median_s,
+        "tokens_per_s": tokens / median_s,
+        "flops_per_step_6_active_T": flops,
+        "bf16_peak_share": flops / median_s / PEAK_BF16_OPS_PER_S,
+        "loss": losses, "lr_per_step": [m["lr"] for m in metrics],
+        "grad_norm": [m["grad_norm"] for m in metrics],
+        "initial_ce": float(first["ce"]), "initial_aux": float(first["aux"]),
+        "final_loss": float(loss), "final_ce": float(parts["ce"]),
+        "final_aux": float(parts["aux"]),
+        "router_grad_norm": router_grad_norm,
+        "peak_mem_bytes": peak, "flash_launches": launches,
+        "expected_flash_launches": expected}
+    del state
+    torch.cuda.empty_cache()
+    result["plain_attention_witness"] = moe_plain_witness(cfg, tcfg, dev,
+                                                          batch)
+    result["ok"] = finite and router_grad_norm > 0.0 and launches == expected
+    emit(kernels)
+    emit(result)
+    assert result["ok"], result
+    del batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def moe_plain_witness(cfg, tcfg, dev, batch) -> dict:
+    """The train_moe steps once more from the same weights (seed 0) with
+    ``layers.attention`` swapped for ``attention_plain``, so that no flash
+    kernel runs: if the routing does here what it does in the kernel run,
+    the kernel has no part in it.  Its losses and grad norms, and ce and
+    aux after the steps; must be finite."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    from repro_torch.models import layers, zoo
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import init_state, make_train_step
+
+    def plain(q, k, v, *, causal=True, window=None, q_offset=0,
+              softcap=0.0):
+        assert q_offset == 0 and not softcap, (q_offset, softcap)
+        return attention_plain(q, k, v, causal=causal, window=window)
+
+    attention, launches = layers.attention, flash_attention.launches
+    layers.attention = plain
+    try:
+        state = init_state(cfg, tcfg,
+                           torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        step = make_train_step(cfg, tcfg)
+        metrics = []
+        for _ in range(MOE_TRAIN_STEPS):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        with torch.no_grad():
+            _, parts = zoo.loss_fn(dataclasses.replace(cfg, remat="full"),
+                                   state["params"], batch)
+        finite = all(math.isfinite(v) for m in metrics for v in m.values()) \
+            and all(bool(torch.isfinite(t).all())
+                    for t in tree_leaves(state["params"]))
+    finally:
+        layers.attention = attention
+    assert flash_attention.launches == launches, "the witness ran flash"
+    out = {"loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "final_ce": float(parts["ce"]), "final_aux": float(parts["aux"])}
+    assert finite and math.isfinite(out["final_aux"]), out
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def leaf_paths(tree: dict, prefix: str = "") -> list[str]:
@@ -1211,6 +1543,7 @@ def main() -> int:
           "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
           **time_flash(gen, dev, FLASH_TIMED[0], fa_err)}
     fa_d256 = time_flash(gen, dev, FLASH_TIMED[1], fa_err)
+    fa_mixtral = time_flash(gen, dev, FLASH_TIMED[2], fa_err)
     rg = {"name": "rglru", "route": "cuda",
           "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
           "replaces": "src/repro/kernels/rglru/kernel.py:56",
@@ -1222,7 +1555,7 @@ def main() -> int:
           **time_wkv6(gen, dev, WKV6_TIMED[0], wk_err)}
     wk_b1 = time_wkv6(gen, dev, WKV6_TIMED[1], wk_err)
     for name, t in (("flash_attention", fa), ("flash_attention", fa_d256),
-                    ("rglru", rg), ("rglru", rg_b1), ("wkv6", wk),
+                    ("flash_attention", fa_mixtral), ("rglru", rg), ("rglru", rg_b1), ("wkv6", wk),
                     ("wkv6", wk_b1)):
         emit({"phase": "kernel_time", "kernel": name, **{k_: t[k_] for k_ in (
             "ms", "cold_ms", "launch_host_us", "fp32_ms", "plain_ms",
@@ -1271,14 +1604,56 @@ def main() -> int:
         draw_leaves=draw_rwkv6_leaves, per_call=HeldPerCall())
     assert rwkv["compared_prompt_len"] == 4093
 
-    # 8. train: olmo-1b at full width; its gradients against the plain path
+    # 8. slice: granite-3-8b at full width and depth (GQA 32/8) -------------
+    cfg = get_config("granite-3-8b")
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(64, 1025, size=8)]
+    assert any(len(p) % 64 for p in prompts), "no ragged prompt length"
+    # after 40 bf16 layers the kernel path and the plain path are each about
+    # as far from fp32 as the other (the line's plain_bf16_logits_err_vs_fp32
+    # and kernel_bf16_logits_err_vs_fp32), so two such roundings, if
+    # independent, end about sqrt(2) times that far apart: the bf16 logits
+    # are held within sqrt(2) times the plain path's own error (a bound the
+    # kernel's own error does not raise); each flash call of the compared
+    # prefills is also held against attention_plain on its own inputs
+    granite = serve_slice(cfg, dev, prompts, max_len=2048,
+                          counters={flash_attention: cfg.n_layers},
+                          compare_wave=0,
+                          plain_kw={"self_attn": attention_plain},
+                          per_call=HeldFlashPerCall(),
+                          bf16_own_factor=math.sqrt(2.0))
+
+    # 9. slice: mixtral-8x7b at full width, 8 of 32 layers (MoE top-2, SWA)
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              n_layers=MOE_SERVE_LAYERS)
+    lens = [*rng.integers(64, 1025, size=4), *rng.integers(1500, 4093, size=3),
+            4093]               # decode wraps the 4096 window after 3 tokens
+    if not any(n % 64 for n in lens[4:]):       # one ragged long prompt
+        lens[4] += 1
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+    assert max(lens) <= cfg.window       # one MoE group a row (S <= 4096)
+    mixtral = serve_slice(cfg, dev, prompts, max_len=8192,
+                          counters={flash_attention: cfg.n_layers},
+                          compare_wave=1,
+                          plain_kw={"self_attn": attention_plain},
+                          route_log=RouteLog())
+    assert mixtral["compared_prompt_len"] == 4093
+    assert mixtral["compared_cache_len"] == cfg.window
+
+    # 10. train: olmo-1b at full width; its gradients against the plain
+    # path; mixtral-8x7b at full width cut in depth
     train = train_olmo(dev)
     train_grad_check(dev)
+    moe_train = train_moe(dev)
 
-    # 9. kernels line, card line, result --------------------------------------
+    # 11. kernels line, card line, result -------------------------------------
     by_path = {"olmo-1b": olmo["launches"]["flash_attention"],
                "recurrentgemma-2b": rgemma["launches"]["flash_attention"],
-               "olmo-1b train": train["flash_launches"]}
+               "granite-3-8b": granite["launches"]["flash_attention"],
+               "mixtral-8x7b": mixtral["launches"]["flash_attention"],
+               "olmo-1b train": train["flash_launches"],
+               "mixtral-8x7b train": moe_train["flash_launches"]}
     fa["launches"] = sum(by_path.values())
     rg["launches"] = rgemma["launches"]["rglru"]
     wk["launches"] = rwkv["launches"]["wkv6"]
@@ -1288,7 +1663,9 @@ def main() -> int:
     flash_keys = (*keys, "cold_ms")
     emit({"kernels": [
         {**{k_: fa[k_] for k_ in flash_keys}, "launches_by_path": by_path,
-         "at_d256": {k_: fa_d256[k_] for k_ in flash_keys if k_ in fa_d256}},
+         "at_d256": {k_: fa_d256[k_] for k_ in flash_keys if k_ in fa_d256},
+         "at_mixtral": {k_: fa_mixtral[k_] for k_ in flash_keys
+                        if k_ in fa_mixtral}},
         {**{k_: rg[k_] for k_ in keys},
          "at_b1": {k_: rg_b1[k_] for k_ in keys if k_ in rg_b1}},
         {**{k_: wk[k_] for k_ in keys},

@@ -1,26 +1,29 @@
 """Config registry of the port: own copies of the reference's configs
-that the port serves (dense, hybrid and ssm), each with ``CONFIG`` (full
-width) and ``SMOKE`` exactly as in ``repro.configs``.  The other
-architectures wait for their slice of the port (ROADMAP.md, "Modules to
-port")."""
+that the port serves (dense, moe, hybrid and ssm), each with ``CONFIG``
+(full width) and ``SMOKE`` exactly as in ``repro.configs``.  The vlm and
+audio architectures wait for their slice of the port (ROADMAP.md,
+"Modules to port")."""
 
 from __future__ import annotations
 
-from repro_torch.configs import (codeqwen1_5_7b, granite_3_8b, olmo_1b,
+from repro_torch.configs import (codeqwen1_5_7b, granite_3_8b, llama3_405b,
+                                llama4_scout_17b_a16e, mixtral_8x7b, olmo_1b,
                                 recurrentgemma_2b, rwkv6_1_6b)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "granite-3-8b": granite_3_8b,
+    "llama3-405b": llama3_405b,
     "codeqwen1.5-7b": codeqwen1_5_7b,
     "olmo-1b": olmo_1b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "mixtral-8x7b": mixtral_8x7b,
     "recurrentgemma-2b": recurrentgemma_2b,
     "rwkv6-1.6b": rwkv6_1_6b,
 }
 
 # the reference's architectures that this port does not serve yet
-_NOT_PORTED = ("llama3-405b", "llama4-scout-17b-a16e", "mixtral-8x7b",
-               "llama-3.2-vision-11b", "whisper-small")
+_NOT_PORTED = ("llama-3.2-vision-11b", "whisper-small")
 
 ARCH_IDS = tuple(_MODULES)
 

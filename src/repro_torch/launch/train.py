@@ -63,7 +63,7 @@ def main(argv: list[str] | None = None) -> dict:
     device = resolve_device(args.device)
     cfg, tcfg = build(args)
     print(f"arch={cfg.arch_id} params={cfg.param_count():,} "
-          f"device={device}")
+          f"active={cfg.active_param_count():,} device={device}")
 
     dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                       vocab=cfg.vocab, seed=args.seed,

@@ -96,6 +96,15 @@ class ModelConfig:
         tree = zoo.init(self, device="meta")
         return int(sum(t.numel() for t in tree_leaves(tree)))
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the routed experts)."""
+        total = self.param_count()
+        if not self.moe_experts:
+            return total
+        expert = 3 * self.d_model * self.d_ff  # gate/up/down per expert
+        inactive = (self.moe_experts - self.moe_top_k) * expert * self.n_layers
+        return total - inactive
+
 
 # ---------------------------------------------------------------------------
 # Param tree construction
@@ -180,6 +189,7 @@ _FLOAT32_LEAVES = (
     "w_lora_b",   # decay LoRA (exp(-exp(w0 + lora)) in fp32)
     "u",          # RWKV6 current-token bonus (the WKV6 kernel takes fp32)
     "ln_x",       # RWKV6 group-norm scale (applied in fp32)
+    "router",     # MoE router (logits and softmax in fp32)
 )
 
 
@@ -192,7 +202,8 @@ def cast_matrices(params: Params, dtype: torch.dtype) -> Params:
     tree cast once to that dtype gives the same numbers while the per-step
     casts become no-ops.  Norm scales and ``_FLOAT32_LEAVES`` stay in
     their own dtype: the model reads them in float32, and a bf16 copy of
-    ``log_a``, ``w0`` or ``w_lora_b`` would move every decay rate."""
+    ``log_a``, ``w0`` or ``w_lora_b`` would move every decay rate, and a
+    bf16 ``router`` would route tokens to other experts."""
     def cast(path: str, t: torch.Tensor) -> torch.Tensor:
         name = path.split("/")[-1]
         if name.endswith("norm") or name in _FLOAT32_LEAVES:

@@ -1,8 +1,8 @@
-"""Shared layers: norms, RoPE, attention, MLPs, the RG-LRU and RWKV6
-recurrences.
+"""Shared layers: norms, RoPE, attention, MLPs, the MoE block, the RG-LRU
+and RWKV6 recurrences.
 
-Port of ``repro.models.layers`` (norms through MLPs, the RG-LRU functions
-and the RWKV6 decode step; MoE excluded).  Each function keeps the reference's
+Port of ``repro.models.layers`` (norms through MLPs, the MoE block, the
+RG-LRU functions and the RWKV6 decode step).  Each function keeps the reference's
 dtype behaviour: norms and RoPE compute in float32 and cast back,
 attention scores accumulate in float32 and the probabilities are cast to
 the activation dtype before the PV product; the RG-LRU gates are float32
@@ -10,7 +10,8 @@ sigmoids and its carry is float32.
 
 On CUDA, prefill self-attention goes through the hand-written flash
 attention kernel and the prefill RG-LRU scan through the hand-written
-RG-LRU kernel; everything else runs the dense math below.  The RWKV6
+RG-LRU kernel; everything else runs the dense math below (the MoE block
+too: the reference computes it outside any Pallas kernel).  The RWKV6
 prefill recurrence goes to the WKV6 kernel from ``models/rwkv6.py``; its
 decode step is here.  The kernels are forward-only: where autograd needs
 a gradient through one, its backward recomputes the differentiable torch
@@ -242,6 +243,92 @@ def mlp_gelu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     return mlp_swiglu(p, x) if kind == "swiglu" else mlp_gelu(p, x)
+
+
+# ---------------------------------------------------------------------------
+# MoE (GShard-style capacity dispatch; top-1 and top-2)
+# ---------------------------------------------------------------------------
+
+# dispatch-group size: a longer sequence is split into groups of this many
+# tokens (the reference's 4096), so capacity does not grow with S
+MOE_GROUP = 4096
+
+
+def moe_capacity(s: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert in a group of ``s`` tokens: ceil(int(f*S*k) / E),
+    at least 4 and at most ``s`` (so 1 at decode)."""
+    capacity = max(4, -(-int(capacity_factor * s * top_k) // n_experts))
+    return min(capacity, s)
+
+
+def moe_route(p: dict, x: torch.Tensor, top_k: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's fp32 softmax probs (B,S,E) and its top-k gate values
+    and expert indices (B,S,k).  A stable descending sort breaks ties by
+    the lower index, as ``lax.top_k`` does (``torch.topk`` does not); the
+    gate values keep the gradient of the probs they were taken from."""
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, vals[..., :top_k], idx[..., :top_k]
+
+
+def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) -> (out, aux_loss).  Experts stacked on dim 0 of
+    p['w_gate'|'w_up'|'w_down']: (E, D, F) / (E, F, D); p['router'] (D, E)
+    read in fp32.
+
+    The reference's GShard GROUPED dispatch: each batch row (or each
+    ``MOE_GROUP``-token piece of a longer one) is a group with its own
+    capacity, and dense one-hot dispatch/combine tensors (B, S, E, C) move
+    tokens to the experts' buffers.  A token's slot-j route goes to the
+    expert's next buffer position after every earlier route to that
+    expert (all of slot j-1's, kept or dropped); a route at or past
+    capacity is dropped and the token keeps only its residual there.  Aux
+    is the Switch load-balancing loss of slot 0, in fp32."""
+    b, s, d = x.shape
+    dt = x.dtype
+    if s > MOE_GROUP:
+        if s % MOE_GROUP:
+            raise ValueError(f"moe_block: S={s} above {MOE_GROUP} must be a "
+                             f"multiple of it")
+        out, aux = moe_block(p, x.reshape(b * (s // MOE_GROUP), MOE_GROUP, d),
+                             n_experts=n_experts, top_k=top_k,
+                             capacity_factor=capacity_factor)
+        return out.reshape(b, s, d), aux
+    capacity = moe_capacity(s, n_experts, top_k, capacity_factor)
+    probs, gate_vals, gate_idx = moe_route(p, x, top_k)
+    me = probs.mean(dim=1)                                         # (B,E)
+    ce = F.one_hot(gate_idx[..., 0], n_experts).float().mean(dim=1)
+    aux = n_experts * torch.mean(torch.sum(me * ce, dim=-1))
+
+    slots = torch.arange(capacity, device=x.device)
+    combine = torch.zeros((b, s, n_experts, capacity), dtype=torch.float32,
+                          device=x.device)
+    dispatch = torch.zeros((b, s, n_experts, capacity), dtype=torch.bool,
+                           device=x.device)
+    occupancy = torch.zeros((b, n_experts), dtype=torch.long,
+                            device=x.device)
+    for slot in range(top_k):
+        onehot = F.one_hot(gate_idx[..., slot], n_experts)        # (B,S,E)
+        pos = torch.cumsum(onehot, dim=1) - 1 + occupancy[:, None, :]
+        pos = torch.where(onehot > 0, pos, -1)
+        occupancy = occupancy + onehot.sum(dim=1)
+        # a kept route's buffer position; -1 and positions past capacity
+        # match no slot
+        oh_cap = pos[..., None] == slots                          # (B,S,E,C)
+        combine = combine + oh_cap * gate_vals[..., slot, None, None]
+        dispatch |= oh_cap
+
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), x)
+    gate = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_gate"].to(dt))
+    up = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_up"].to(dt))
+    act = F.silu(gate.float()).to(dt) * up
+    expert_out = torch.einsum("ebcf,efd->ebcd", act, p["w_down"].to(dt))
+    out = torch.einsum("bsec,ebcd->bsd", combine.to(dt), expert_out)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

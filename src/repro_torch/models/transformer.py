@@ -1,8 +1,11 @@
-"""Decoder-only transformer LM, ``dense`` family (GQA, optional SWA).
+"""Decoder-only transformer LM: the ``dense`` and ``moe`` families (GQA,
+optional SWA, optional MoE).
 
 Port of ``repro.models.transformer`` for the dense configs (olmo-1b,
-granite-3-8b, codeqwen1.5-7b).  The reference scans over stacked layer
-params; here a Python loop indexes the same stacked ``layers/*`` tensors.
+granite-3-8b, codeqwen1.5-7b, llama3-405b) and the MoE ones (mixtral-8x7b:
+top-2 and SWA; llama4-scout-17b-a16e: top-1).  The reference scans over
+stacked layer params; here a Python loop indexes the same stacked
+``layers/*`` tensors.
 
 Interfaces (as the reference's):
   init(cfg, generator, device)               -> params
@@ -10,6 +13,9 @@ Interfaces (as the reference's):
   init_cache(cfg, batch, max_len, device)    -> cache
   prefill(cfg, params, tokens, max_len)      -> (logits_last, cache)
   decode_step(cfg, params, cache, token, pos)-> (logits, cache)
+
+``aux`` is the sum over layers of the MoE blocks' load-balancing losses
+(zero for the dense family); ``zoo.loss_fn`` adds it with its weight.
 
 KV cache layout: k/v (L, S_max, B, K, hd) + "len" (a Python int).
 ``decode_step`` writes the new (L, B, K, hd) row into the cache tensors IN
@@ -20,7 +26,7 @@ PLACE (the reference returns a fresh cache); it returns the same dict with
 another function of the same signature, e.g. the kernel's plain version,
 so one run can hold the kernel path against it.  ``cfg.remat == "full"``
 checkpoints each layer (``layers.maybe_remat``), as the reference does
-around its scan body.  MoE is not ported yet.
+around its scan body.
 """
 
 from __future__ import annotations
@@ -32,13 +38,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
 
 
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE layers are not ported to repro_torch yet; "
-            "see ROADMAP.md")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -46,7 +45,6 @@ def _no_moe(cfg: ModelConfig) -> None:
 def init(cfg: ModelConfig, generator: torch.Generator | None,
          device: torch.device) -> dict:
     """Same paths, shapes and init laws as the reference's ``_build``."""
-    _no_moe(cfg)
     tb = TreeBuilder(cfg, device, generator)
     d, hd = cfg.d_model, cfg.hd
     nl = cfg.n_layers
@@ -57,9 +55,16 @@ def init(cfg: ModelConfig, generator: torch.Generator | None,
     tb.leaf("layers/wk", (nl, d, cfg.n_kv_heads * hd))
     tb.leaf("layers/wv", (nl, d, cfg.n_kv_heads * hd))
     tb.leaf("layers/wo", (nl, cfg.n_heads * hd, d))
-    tb.leaf("layers/w_gate", (nl, d, cfg.d_ff))
-    tb.leaf("layers/w_up", (nl, d, cfg.d_ff))
-    tb.leaf("layers/w_down", (nl, cfg.d_ff, d))
+    if cfg.moe_experts:
+        e = cfg.moe_experts
+        tb.leaf("layers/router", (nl, d, e))
+        tb.leaf("layers/w_gate", (nl, e, d, cfg.d_ff))
+        tb.leaf("layers/w_up", (nl, e, d, cfg.d_ff))
+        tb.leaf("layers/w_down", (nl, e, cfg.d_ff, d))
+    else:
+        tb.leaf("layers/w_gate", (nl, d, cfg.d_ff))
+        tb.leaf("layers/w_up", (nl, d, cfg.d_ff))
+        tb.leaf("layers/w_down", (nl, cfg.d_ff, d))
     tb.leaf("final_norm", (d,), init="zeros")
     if not cfg.tie_embeddings:
         tb.leaf("unembed", (d, cfg.padded_vocab), scale=0.02)
@@ -90,10 +95,23 @@ def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor
     return logits
 
 
+def _mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's MLP: the MoE block and its aux loss, or the dense MLP
+    and None."""
+    if cfg.moe_experts:
+        return L.moe_block(lp, h, n_experts=cfg.moe_experts,
+                           top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor)
+    return L.apply_mlp(cfg.act, lp, h), None
+
+
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, self_attn: L.SelfAttention
-           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One transformer block. x: (B,S,D). Returns (x', k, v)."""
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor | None]:
+    """One transformer block. x: (B,S,D). Returns (x', k, v, aux), aux
+    None in a dense block."""
     dt = x.dtype
     b, s, _ = x.shape
     hd = cfg.hd
@@ -105,9 +123,8 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
     k = L.apply_rope(k, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
     x = x + o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
-    h2 = _norm(cfg, x, lp["mlp_norm"])
-    x = x + L.apply_mlp(cfg.act, lp, h2)
-    return x, k, v
+    m, aux = _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm"]))
+    return x + m, k, v, aux
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
@@ -116,7 +133,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss[, kv]).
 
     ``last_only``: unembed only the final position (prefill path)."""
-    _no_moe(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dt = cfg.activation_dtype
@@ -125,13 +141,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
                              cfg.rope_theta)
     attn = self_attn or L.attention
     layer = L.maybe_remat(_layer, cfg.remat)
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for lp in unstack(params["layers"], cfg.n_layers):
-        x, k, v = layer(cfg, lp, x, cos, sin, attn)
+        x, k, v, layer_aux = layer(cfg, lp, x, cos, sin, attn)
         if collect_cache:
             ks.append(k.transpose(0, 1))
             vs.append(v.transpose(0, 1))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if layer_aux is not None:
+            auxes.append(layer_aux)
+    aux = (torch.stack(auxes).sum() if auxes else
+           torch.zeros((), dtype=torch.float32, device=x.device))
     x = _norm(cfg, x, params["final_norm"])
     if last_only:
         x = x[:, -1:]
@@ -182,7 +201,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
     """token: (B,) int; pos: absolute position (for RoPE).  Writes the new
     k/v at slot len % max_len (ring buffer for SWA), in place."""
-    _no_moe(cfg)
     b = token.shape[0]
     dt = cfg.activation_dtype
     hd = cfg.hd
@@ -207,8 +225,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             q, cache["k"][i].transpose(0, 1), cache["v"][i].transpose(0, 1),
             n_valid, window=None)   # ring buffer already bounds the window
         x = x + o.reshape(b, 1, cfg.n_heads * hd) @ lp["wo"].to(dt)
-        h2 = _norm(cfg, x, lp["mlp_norm"])
-        x = x + L.apply_mlp(cfg.act, lp, h2)
+        x = x + _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm"]))[0]
     x = _norm(cfg, x, params["final_norm"])
     logits = unembed(cfg, params, x)[:, 0]
     cache["len"] = n + 1

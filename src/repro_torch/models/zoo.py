@@ -1,6 +1,6 @@
 """Family dispatch: the reference's uniform model interface, for the
-``dense``, ``hybrid`` and ``ssm`` families so far (other families raise
-``NotImplementedError``)."""
+``dense``, ``moe``, ``hybrid`` and ``ssm`` families so far (vlm and audio
+raise ``NotImplementedError``)."""
 
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ from repro_torch import resolve_device
 from repro_torch.models import recurrentgemma, rwkv6, transformer
 from repro_torch.models.common import ModelConfig
 
-FAMILY_MODULES = {"dense": transformer, "hybrid": recurrentgemma,
-                  "ssm": rwkv6}
+FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                  "hybrid": recurrentgemma, "ssm": rwkv6}
 
 
 def module_for(cfg: ModelConfig):

@@ -19,7 +19,7 @@ from repro_torch.models import zoo
 from repro_torch.models.common import cast_matrices, tree_leaves
 
 ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b", "recurrentgemma-2b",
-         "rwkv6-1.6b"]
+         "rwkv6-1.6b", "mixtral-8x7b", "llama4-scout-17b-a16e", "llama3-405b"]
 
 
 def _flat(tree, prefix=""):
@@ -81,6 +81,20 @@ def test_meta_shapes_equal_reference(arch):
         assert tuple(t.shape) == ref[path].shape, path
         assert str(t.dtype).removeprefix("torch.") == str(ref[path].dtype)
     assert cfg.param_count() == jax_get_config(arch).param_count()
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_active_param_count_equals_reference(arch, smoke):
+    mine, ref = get_config(arch, smoke), jax_get_config(arch, smoke)
+    assert mine.active_param_count() == ref.active_param_count()
+    if mine.moe_experts:
+        # only the unrouted experts' gate/up/down fall out
+        per_expert = 3 * mine.d_model * mine.d_ff
+        assert mine.param_count() - mine.active_param_count() == (
+            (mine.moe_experts - mine.moe_top_k) * per_expert * mine.n_layers)
+    else:
+        assert mine.active_param_count() == mine.param_count()
 
 
 def test_init_laws_on_cpu():
@@ -146,6 +160,26 @@ def test_cast_matrices_keeps_rwkv6_decay_leaves_float32():
     assert torch.equal(logits, logits_cast)
 
 
+def test_cast_matrices_keeps_moe_router_float32():
+    """The MoE router is read in float32 (logits and softmax): a tree cast
+    once to bf16 keeps it so, and routes as the uncast tree does."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", smoke=True),
+                              dtype="bfloat16")
+    gen = torch.Generator("cpu").manual_seed(3)
+    p = zoo.init(cfg, gen, device="cpu")
+    cast = cast_matrices(p, torch.bfloat16)
+    for path, t in _flat(cast).items():
+        keep = path == "layers/router" or path.endswith("norm")
+        assert t.dtype == (torch.float32 if keep else torch.bfloat16), path
+    router = p["layers"]["router"]
+    assert not torch.equal(router.to(torch.bfloat16).float(), router)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    logits, aux = zoo.forward(cfg, p, {"tokens": tokens})
+    logits_cast, aux_cast = zoo.forward(cfg, cast, {"tokens": tokens})
+    assert logits.dtype == torch.bfloat16
+    assert torch.equal(logits, logits_cast) and torch.equal(aux, aux_cast)
+
+
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the refusal path cannot be exercised")
@@ -154,4 +188,4 @@ def test_entry_points_refuse_missing_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         zoo.init(get_config("olmo-1b", smoke=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("whisper-small")

@@ -1,10 +1,11 @@
 """The port on a CUDA card: the flash attention, RG-LRU and WKV6 kernels
 against their plain versions, the serving paths through the kernels, the
 gradients through the kernels' autograd Functions against the CPU plain
-path, one olmo-1b smoke train step on the card against the same step on
-the CPU, and a smoke run on the card through ``run_with_recovery`` with a
-failure after a save, which must restore onto the card and end in the
-uninterrupted run's state.
+path, one olmo-1b and one mixtral-8x7b smoke train step on the card
+against the same step on the CPU, the mixtral-8x7b smoke forward, loss,
+prefill and decode on the card against the CPU, and a smoke run on the
+card through ``run_with_recovery`` with a failure after a save, which
+must restore onto the card and end in the uninterrupted run's state.
 
 Every test here is marked ``cuda`` and skips without a card; the file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -252,6 +253,14 @@ def _kernel_call(kernel, ins):
     return wkv6(*ins, floor=1e-8)
 
 
+def _plain_call(kernel, ins):
+    if kernel == "flash_attention":
+        return (attention_plain(*ins, causal=True, window=48),)
+    if kernel == "rglru":
+        return rglru_plain(*ins)
+    return wkv6_plain(*ins, floor=1e-8)
+
+
 @pytest.mark.parametrize("kernel", [flash_attention, rglru, wkv6],
                          ids=lambda k: k.__name__)
 def test_kernel_gradients_match_cpu_plain(cuda_device, kernel):
@@ -267,28 +276,46 @@ def test_kernel_gradients_match_cpu_plain(cuda_device, kernel):
     assert kernel.launches == before + 1
     got = torch.autograd.grad(dev_outs, dev_ins,
                               [c.to(cuda_device) for c in cots])
-    # every input gets a gradient, and it is the plain path's
+    # every input gets a gradient, and it is the plain path's; a failure
+    # also reports the same gradients computed once more on each side
     for i, (g, w) in enumerate(zip(got, want)):
         assert g is not None and g.device.type == "cuda", (name, i)
-        assert _rel_gap(g, w) <= GRAD_RTOL, (name, i, _rel_gap(g, w))
+        assert _rel_gap(g, w) <= GRAD_RTOL, (
+            name, i, _rel_gap(g, w), _gradients_again(name, ins, cots, want,
+                                                      cuda_device))
 
 
-def test_smoke_train_step_on_cuda_matches_cpu(cuda_device):
-    cfg = get_config("olmo-1b", smoke=True)
+def _gradients_again(name, ins, cots, want, device) -> dict:
+    """The relative gaps to ``want`` of the CPU gradients and the CUDA
+    gradients computed again, and of the plain version's VJP on CUDA."""
+    def grads(dev, plain=False):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in ins]
+        outs = (_plain_call(name, leaves) if plain
+                else _kernel_call(name, leaves))
+        return torch.autograd.grad(outs, leaves, [c.to(dev) for c in cots])
+    return {side: [_rel_gap(g, w) for g, w in zip(grads(dev, plain), want)]
+            for side, dev, plain in (("cpu", "cpu", False),
+                                     ("cuda", device, False),
+                                     ("cuda_plain", device, True))}
+
+
+def _train_step_on_cuda_matches_cpu(arch, device):
+    """One smoke ``make_train_step`` step (2 microbatches, remat) on the
+    card against the same step on the CPU; returns flash's launches."""
+    cfg = get_config(arch, smoke=True)
     tcfg = TrainConfig(microbatches=2, remat=True, optimizer=AdamWConfig(
         lr=5e-3, total_steps=10, warmup_steps=1))
     cpu_state = init_state(cfg, tcfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    dev_state = _to(cpu_state, cuda_device)
+    dev_state = _to(cpu_state, device)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (4, 32)))
     batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
     step = make_train_step(cfg, tcfg)
     cpu_new, cpu_m = step(cpu_state, batch)
     before = flash_attention.launches
-    dev_new, dev_m = step(dev_state, _to(batch, cuda_device))
-    # 2 layers x 2 microbatches x (forward + remat recompute)
-    assert flash_attention.launches - before == 8
+    dev_new, dev_m = step(dev_state, _to(batch, device))
+    launched = flash_attention.launches - before
     for name in ("loss", "lr", "grad_norm"):
         np.testing.assert_allclose(float(dev_m[name]), float(cpu_m[name]),
                                    rtol=GRAD_RTOL, err_msg=name)
@@ -309,6 +336,57 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda_device):
         assert stable.float().mean() >= 0.9
         err = (p_d.cpu() - p_c).abs()[stable].max()
         assert err <= 1e-6 * p_c.abs().max(), float(err)
+    return launched
+
+
+def test_smoke_train_step_on_cuda_matches_cpu(cuda_device):
+    # 2 layers x 2 microbatches x (forward + remat recompute)
+    assert _train_step_on_cuda_matches_cpu("olmo-1b", cuda_device) == 8
+
+
+def test_mixtral_smoke_train_step_on_cuda_matches_cpu(cuda_device):
+    """The MoE family's step: routing, aux loss and expert gradients."""
+    assert _train_step_on_cuda_matches_cpu("mixtral-8x7b", cuda_device) == 8
+
+
+def test_mixtral_smoke_serving_on_cuda_matches_cpu(cuda_device):
+    """mixtral-8x7b smoke (top-2 MoE, window 8) on the card through the
+    flash kernel: forward logits and aux, loss, prefill and 2 decode steps
+    (the cache keeps the window's last 8 tokens, so both steps wrap its
+    ring buffer) against the CPU plain path on the same params, within
+    1e-4."""
+    cfg = get_config("mixtral-8x7b", smoke=True)
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 13)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    dec = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 2)))
+    max_len = zoo.cache_max_len(cfg, 16)
+
+    def run(device):
+        p, b = _to(params, device), _to(batch, device)
+        with torch.no_grad():
+            logits, aux = zoo.forward(cfg, p, b)
+            loss, parts = zoo.loss_fn(cfg, p, b)
+            out = [logits, aux, loss, parts["ce"]]
+            lg, cache = zoo.prefill(cfg, p, b, max_len)
+            out.append(lg)
+            for i, pos in enumerate((12, 13)):
+                lg, cache = zoo.decode_step(cfg, p, cache, dec[:, i].to(
+                    device), pos)
+                out += [lg, cache["k"].clone(), cache["v"].clone()]
+        return out
+
+    want = run("cpu")
+    before = flash_attention.launches
+    got = run(cuda_device)
+    # forward, loss and prefill each run both layers through the kernel
+    assert flash_attention.launches - before == 3 * cfg.n_layers
+    assert float(want[1]) > 0.0
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
 
 
 def test_recovery_on_cuda_ends_in_the_uninterrupted_state(cuda_device,

@@ -1,8 +1,9 @@
 """Port's training path against the reference (``repro.train``,
 ``repro.data``, ``repro.models.zoo``), on the CPU.
 
-* Gradients of ``zoo.loss_fn`` for olmo-1b, recurrentgemma-2b and
-  rwkv6-1.6b (smoke configs, float32; rwkv6's six zero-initialised leaves
+* Gradients of ``zoo.loss_fn`` for olmo-1b, recurrentgemma-2b,
+  rwkv6-1.6b and mixtral-8x7b (its MoE aux term included; smoke configs,
+  float32; rwkv6's six zero-initialised leaves
   drawn non-zero as ``tests/test_torch_rwkv6.py`` draws them) against
   ``jax.grad`` of the reference's, per leaf within ``GRAD_TOL`` of the
   leaf's largest |g|: the reference sums in other orders, and runs the
@@ -13,10 +14,10 @@
   Per-layer remat ("full") gives the port's gradients bit for bit.
 * One ``make_train_step`` step of both packages from one bridged state
   (olmo-1b, 2 microbatches, ``remat=True``), with and without top-k
-  compression.  Adam's first step is about lr * sign(g), so the new
+  compression, and the same for mixtral-8x7b without compression.  Adam's first step is about lr * sign(g), so the new
   params are compared where |g| is far above the two packages' gradient
   gap (``_significant``); loss, lr, grad_norm, mu and nu everywhere.
-* The 4-step loss decrease of tests/test_models_smoke.py on the three
+* The 4-step loss decrease of tests/test_models_smoke.py on the four
   smoke configs.
 * Checkpoints saved by either package restore in the other (bf16
   moments included) and both lay out the same files; ``latest_step``,
@@ -77,7 +78,7 @@ from repro_torch.train import (CheckpointManager, TrainConfig, abstract_state,
                                run_with_recovery)
 from test_torch_rwkv6 import draw_params
 
-ARCHS = ("olmo-1b", "recurrentgemma-2b", "rwkv6-1.6b")
+ARCHS = ("olmo-1b", "recurrentgemma-2b", "rwkv6-1.6b", "mixtral-8x7b")
 B, S = 2, 12
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 _XLA_OPTS = {"xla_allow_excess_precision": False}
@@ -154,6 +155,7 @@ GRAD_CASES = {
     "rwkv6-1.6b": ("rwkv6-1.6b", "float32", (-8.0, 1.0)),
     "rwkv6-1.6b-clip": ("rwkv6-1.6b", "float32", (-8.0, 3.5)),
     "olmo-1b-bf16": ("olmo-1b", "bfloat16", None),
+    "mixtral-8x7b": ("mixtral-8x7b", "float32", None),
 }
 
 
@@ -210,9 +212,11 @@ def _stable(g_ref, g_port):
     return (np.abs(g_ref) >= 100.0 * gap) | ((g_ref == 0) & (g_port == 0))
 
 
-@pytest.mark.parametrize("scheme", ["none", "topk"])
-def test_train_step_matches_reference(smoke_params, scheme):
-    arch = "olmo-1b"
+@pytest.mark.parametrize("arch,scheme", [
+    pytest.param("olmo-1b", "none", id="none"),
+    pytest.param("olmo-1b", "topk", id="topk"),
+    pytest.param("mixtral-8x7b", "none", id="mixtral-8x7b")])
+def test_train_step_matches_reference(smoke_params, arch, scheme):
     jcfg, cfg = jax_get_config(arch, smoke=True), get_config(arch, smoke=True)
     opt = dict(lr=5e-3, total_steps=10, warmup_steps=1)
     comp = dict(scheme=scheme, topk_ratio=0.1)

@@ -1,5 +1,6 @@
-"""The first AdamW steps of olmo-1b at full width: does the loss rise at
-step 2, and does the port do what the reference does?
+"""The first AdamW steps of a model at full width (olmo-1b unless
+``--arch`` names another): does the loss rise at step 2, and does the port
+do what the reference does?
 
 All runs use the train phase's optimizer of ``chip_smoke.py`` (AdamW, lr
 ``--lr``, one warm-up step, cosine over ``--steps``), ``--microbatches``
@@ -9,13 +10,25 @@ microbatches with per-layer remat, fp32 params, activations in
 before each step, the grad norm, the lr, and, for the first step, the
 first-order change of the loss it predicts, sum(g * (new - old)) (for
 Adam's first step about -lr * ||g||_1), beside the change the second
-step's loss shows.
+step's loss shows.  For an MoE model also the aux loss (1 for balanced
+routing, E for every token on one expert) before each step and after the
+last, so that a collapse of the routing shows in both packages or in one.
+``--d-ff`` cuts the feed-forward (each expert's) width; every other width
+stays as published.
 
 On the CPU (the default) both packages run, each in a process of its own
 so only one state lives at a time (about 10 GB at 2 layers), from the
 reference's ``zoo.init`` weights (seed 0) bridged into the port:
 
     PYTHONPATH=src python witness_first_steps.py [--layers 2] [--seq 256]
+
+mixtral-8x7b as ``chip_smoke.py``'s train_moe phase trains it (1 layer,
+one microbatch, 3 steps, bf16 activations), its experts cut to an eighth
+of their width so that a package's train state fits in about 20 GB:
+
+    PYTHONPATH=src python witness_first_steps.py --arch mixtral-8x7b \
+        --layers 1 --d-ff 1792 --batch 2 --seq 256 --microbatches 1 \
+        --steps 3 --dtype bfloat16
 
 With ``--card``, only the port runs, on the CUDA card, from its own
 ``zoo.init`` (seed 0); this mode imports no JAX.  ``--sweep`` runs it at
@@ -36,14 +49,21 @@ import sys
 import numpy as np
 
 
-def _params_np(layers: int, dtype: str):
+def _cfg(get_config, args):
+    """The config of ``args.arch`` cut to ``args.layers`` (and
+    ``args.d_ff``), activations in ``args.dtype``."""
+    cfg = get_config(args.arch)
+    return dataclasses.replace(cfg, n_layers=args.layers, dtype=args.dtype,
+                               d_ff=args.d_ff or cfg.d_ff)
+
+
+def _params_np(args):
     import jax
 
     from repro.configs import get_config
     from repro.models import zoo
 
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=layers,
-                              dtype=dtype)
+    cfg = _cfg(get_config, args)
     params = jax.tree.map(np.asarray, zoo.init(cfg, jax.random.PRNGKey(0)))
     return cfg, params
 
@@ -83,7 +103,9 @@ def run_reference(args) -> list[dict]:
     from repro.optim import AdamWConfig, init_opt_state
     from repro.train import TrainConfig, make_train_step
 
-    cfg, params = _params_np(args.layers, args.dtype)
+    from repro.models import zoo
+
+    cfg, params = _params_np(args)
     tcfg = TrainConfig(microbatches=args.microbatches, remat=True,
                        optimizer=AdamWConfig(lr=args.lr, warmup_steps=1,
                                              total_steps=args.steps))
@@ -91,10 +113,15 @@ def run_reference(args) -> list[dict]:
              "opt": init_opt_state(tcfg.optimizer, params)}
     batch = jax.tree.map(jax.numpy.asarray, _batch(cfg, args))
     step = jax.jit(make_train_step(cfg, tcfg))
+    aux = jax.jit(lambda p, b: zoo.loss_fn(cfg, p, b)[1]["aux"])
     rows = []
     for i in range(args.steps):
         new, m = step(state, batch)
         row = {k: float(v) for k, v in m.items()}
+        if cfg.family == "moe":
+            row["aux"] = float(aux(state["params"], batch))
+            if i == args.steps - 1:
+                row["aux_after"] = float(aux(new["params"], batch))
         if i == 0:
             row["first_order_change"] = _first_order(
                 state["params"], new["params"], new["opt"]["mu"],
@@ -115,14 +142,13 @@ def run_port(args, dev) -> list[dict]:
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import TrainConfig, make_train_step
 
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=args.layers,
-                              dtype=args.dtype)
+    cfg = _cfg(get_config, args)
     if args.card:
         tparams = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     else:
         from repro_torch.bridge import params_from_jax
-        tparams = params_from_jax(_params_np(args.layers, args.dtype)[1])
+        tparams = params_from_jax(_params_np(args)[1])
     source = SyntheticLM(DataConfig(seq_len=args.seq,
                                     global_batch=args.batch,
                                     vocab=cfg.vocab))
@@ -134,10 +160,19 @@ def run_port(args, dev) -> list[dict]:
     state = {"params": tparams, "opt": init_opt_state(tcfg.optimizer,
                                                       tparams)}
     step = make_train_step(cfg, tcfg)
+
+    def aux(params):
+        with torch.no_grad():
+            return float(zoo.loss_fn(cfg, params, batch)[1]["aux"])
+
     rows = []
     for i in range(args.steps):
         new, m = step(state, batch)
         row = {k: float(v) for k, v in m.items()}
+        if cfg.family == "moe":
+            row["aux"] = aux(state["params"])
+            if i == args.steps - 1:
+                row["aux_after"] = aux(new["params"])
         if i == 0:
             with torch.no_grad():
                 row["first_order_change"] = float(sum(
@@ -153,15 +188,21 @@ def run_port(args, dev) -> list[dict]:
 
 def _summary(package: str, rows: list[dict]) -> dict:
     losses = [r["loss"] for r in rows]
-    return {"package": package, "loss": losses,
-            "grad_norm": [r["grad_norm"] for r in rows],
-            "lr": [r["lr"] for r in rows],
-            "first_order_change_step_1": rows[0]["first_order_change"],
-            "observed_change_step_1": losses[1] - losses[0]}
+    out = {"package": package, "loss": losses,
+           "grad_norm": [r["grad_norm"] for r in rows],
+           "lr": [r["lr"] for r in rows],
+           "first_order_change_step_1": rows[0]["first_order_change"],
+           "observed_change_step_1": losses[1] - losses[0]}
+    if "aux" in rows[0]:
+        out["aux"] = [r["aux"] for r in rows] + [rows[-1]["aux_after"]]
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--d-ff", type=int, default=0,
+                    help="feed-forward width (0: the config's)")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
@@ -204,7 +245,8 @@ def main() -> None:
     for package in ("reference", "port"):
         out = subprocess.run(
             [sys.executable, __file__, "--package", package,
-             *[f"--{k}={v}" for k, v in setup.items()]],
+             *[f"--{k.replace('_', '-')}={v}"
+               for k, v in setup.items()]],
             check=True, capture_output=True, text=True).stdout
         print(json.dumps(_summary(package,
                                   json.loads(out.strip().splitlines()[-1]))))
