@@ -19,8 +19,10 @@ Phases, one JSON line each:
              a window of 40, under one k-tile; D=64 MQA; D=256 causal with
              no window), the recurrentgemma-2b prefill shape (D=256, MQA
              10/1, window 2048, S=2600), the mixtral-8x7b prefill shape
-             (B=4, S=4093, GQA 32/8, window 4096) and S=6000 under that
-             window (the window binds); RG-LRU (``rglru_plain``) at the
+             (B=4, S=4093, GQA 32/8, window 4096), S=6000 under that
+             window (the window binds) and, non-causal, the whisper-small
+             encoder (B=4, S=1500, H=K=12, D=64), S=37 at D=128 and S=192
+             at D=128 with GQA 32/8; RG-LRU (``rglru_plain``) at the
              recurrentgemma-2b prefill shape, its longest B=1 re-prefill
              (S=2382), a ragged S=300, S=1, a=1e-6 and R=130 (copied
              element by element); WKV6 (``wkv6_plain``) at the rwkv6-1.6b
@@ -45,7 +47,8 @@ Phases, one JSON line each:
              paths' shapes: for the recurrences at the B=4 wave prefill and
              the B=1 re-prefill, for WKV6 also both of its geometries; for
              flash attention also the time with L2 flushed before each
-             launch (``cold_ms``);
+             launch (``cold_ms``), and the non-causal whisper-small encoder
+             beside ``scaled_dot_product_attention(is_causal=False)``;
   5. slice   olmo-1b at full width (random weights from seed 0, bf16
              activations) served by ``ServeEngine``: 8 requests of 64-512
              prompt tokens on 4 slots, 16 new tokens each;
@@ -83,7 +86,23 @@ Phases, one JSON line each:
              layer's routing (``RouteLog``): the line counts the tokens
              whose top-2 experts differ between the kernel and plain paths,
              each with its margin;
-  10. train  olmo-1b at full width trained by ``make_train_step``:
+  10. slice  llama-3.2-vision-11b at full width and depth (40 layers: 32
+             self layers through flash, GQA 32/8, and 8 gated cross layers;
+             9.78e9 params), the same way: 8 requests of 64-1024 prompt
+             tokens on 4 slots, 16 new tokens each, ``max_len`` 2048.  Its
+             cross gates, zero at init, are drawn from U(-1, 1) and kept
+             fp32 through the cast; one seeded frontend of 1600 tokens goes
+             to every row of every prefill (``engine_with_frontend``), so
+             an exact re-prefill sees its wave's image.  No prompt is 1600
+             tokens long (that would send the cross-attention to flash);
+             bf16 logits held as granite-3-8b's, and each flash call too;
+  11. slice  whisper-small at full width and depth (12 encoder and 12
+             decoder layers), the same way with one seeded frontend of
+             1500 frames: 8 requests of 16-432 decoder tokens, 16 new each,
+             ``max_len`` 448 (whisper's own cap on the decoder); 24 flash
+             launches a prefill (the encoder's 12 non-causal), none in
+             decode; each flash call held on its own inputs;
+  12. train  olmo-1b at full width trained by ``make_train_step``:
              random fp32 weights from seed 0, bf16 activations, AdamW
              (fp32 moments, lr 1e-4 from its first step), ``remat=True``,
              2 microbatches, 4 steps on one fixed ``SyntheticLM`` batch of
@@ -95,12 +114,12 @@ Phases, one JSON line each:
              x (forward + remat recompute) x 4 steps = 256); then a fifth
              step under ``torch.profiler`` (``train_kernels``: device time
              by group of kernels, the largest kernels);
-  11. train_grad  one fp32 microbatch of olmo-1b at full width (B=1,
+  13. train_grad  one fp32 microbatch of olmo-1b at full width (B=1,
              S=512, TF32 off): the loss's gradients through the kernel
              path against the same with ``self_attn=attention_plain``,
              per leaf within 1e-3 of the leaf's largest |g|; with bf16
              activations held as the slices hold bf16 logits;
-  12. train_moe  mixtral-8x7b at full width cut to 1 layer, trained the
+  14. train_moe  mixtral-8x7b at full width cut to 1 layer, trained the
              same way (1 microbatch of B=2, S=2048, 3 steps, same lr and
              warm-up): step times, tokens/s, the bf16 peak share of
              6 * active params * tokens, the losses, ce and aux of one
@@ -124,9 +143,9 @@ kernels' plain versions, in fp32 and in bf16.  Then the
 ``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b and
 mixtral-8x7b train paths' included; each kernel's largest error against
 its plain version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
-largest ratio of the error to that bound; flash's times also at D=256 and
-at the mixtral-8x7b prefill, for the recurrences their B=1 numbers,
-``at_b1``), the ``nvidia-smi`` line and, last,
+largest ratio of the error to that bound; flash's times also at D=256, at
+the mixtral-8x7b prefill and at the whisper-small encoder, for the
+recurrences their B=1 numbers, ``at_b1``), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero with its traceback.  Without CUDA it exits 2 and prints no
 result.
@@ -176,26 +195,30 @@ WKV6_STRONG_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (5e-4, 5e-3)}
 LOGIT_RTOL = {"float32": 1e-3, "bfloat16": TOL["bfloat16"]}
 OWN_FRAC = 0.25
 
-# (name, B, S, H, K, D, window)
+# (name, B, S, H, K, D, window, causal)
 KERNEL_SHAPES = [
-    ("olmo-1b prefill", 4, 512, 16, 16, 128, None),
-    ("granite GQA", 2, 512, 32, 8, 128, None),
-    ("ragged S=300", 2, 300, 16, 16, 128, None),
-    ("window 64", 2, 512, 16, 16, 128, 64),
-    ("D=16", 2, 128, 4, 4, 16, None),
-    ("S=1", 4, 1, 16, 16, 128, None),
-    ("S=192, not a multiple of 128", 2, 192, 16, 16, 128, None),
-    ("S=37, under one k-tile", 2, 37, 16, 16, 128, None),
-    ("window 40, under one k-tile", 2, 512, 16, 16, 128, 40),
-    ("D=64 MQA", 1, 200, 8, 1, 64, None),
-    ("D=256 causal", 2, 640, 8, 1, 256, None),
-    ("recurrentgemma-2b prefill", 4, 2600, 10, 1, 256, 2048),
-    ("mixtral-8x7b prefill", 4, 4093, 32, 8, 128, 4096),
-    ("window 4096 binds, S=6000", 1, 6000, 32, 8, 128, 4096),
+    ("olmo-1b prefill", 4, 512, 16, 16, 128, None, True),
+    ("granite GQA", 2, 512, 32, 8, 128, None, True),
+    ("ragged S=300", 2, 300, 16, 16, 128, None, True),
+    ("window 64", 2, 512, 16, 16, 128, 64, True),
+    ("D=16", 2, 128, 4, 4, 16, None, True),
+    ("S=1", 4, 1, 16, 16, 128, None, True),
+    ("S=192, not a multiple of 128", 2, 192, 16, 16, 128, None, True),
+    ("S=37, under one k-tile", 2, 37, 16, 16, 128, None, True),
+    ("window 40, under one k-tile", 2, 512, 16, 16, 128, 40, True),
+    ("D=64 MQA", 1, 200, 8, 1, 64, None, True),
+    ("D=256 causal", 2, 640, 8, 1, 256, None, True),
+    ("recurrentgemma-2b prefill", 4, 2600, 10, 1, 256, 2048, True),
+    ("mixtral-8x7b prefill", 4, 4093, 32, 8, 128, 4096, True),
+    ("window 4096 binds, S=6000", 1, 6000, 32, 8, 128, 4096, True),
+    # non-causal: every key visible to every query (whisper's encoder)
+    ("whisper-small encoder", 4, 1500, 12, 12, 64, None, False),
+    ("S=37 non-causal, under one k-tile", 2, 37, 16, 16, 128, None, False),
+    ("S=192 non-causal, GQA 32/8", 2, 192, 32, 8, 128, None, False),
 ]
 # the flash shapes that are timed: the main paths'
 FLASH_TIMED = ("olmo-1b prefill", "recurrentgemma-2b prefill",
-               "mixtral-8x7b prefill")
+               "mixtral-8x7b prefill", "whisper-small encoder")
 # the recurrences' timed shapes: the B=4 wave prefill and the longest B=1
 # exact re-prefill that the slice runs (the served paths mostly run B=1)
 RGLRU_TIMED = ("recurrentgemma-2b prefill", "recurrentgemma-2b re-prefill")
@@ -445,19 +468,19 @@ def check_flash(gen, dev) -> dict:
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
     max_err = {}
-    for name, b, s, h, kh, d, window in KERNEL_SHAPES:
+    for name, b, s, h, kh, d, window, causal in KERNEL_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             dn = dtype_name(dtype)
             q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
             k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dtype)
             v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dtype)
-            out = flash_attention(q, k, v, causal=True, window=window)
-            ref = attention_plain(q, k, v, causal=True, window=window)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            ref = attention_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             h_ = held(out, ref, TOL[dn], TOL[dn])
             check = {"phase": "kernel", "kernel": "flash_attention",
                      "shape": name, "B": b, "S": s, "H": h, "K": kh, "D": d,
-                     "window": window, "dtype": dn, **h_,
+                     "window": window, "causal": causal, "dtype": dn, **h_,
                      "ok": h_["max_err_ratio"] <= 1.0}
             emit(check)
             assert check["ok"], check
@@ -515,37 +538,39 @@ def time_flash(gen, dev, name, max_err) -> dict:
 
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
-    _, b, s, h, kh, d, window = next(sh for sh in KERNEL_SHAPES
-                                     if sh[0] == name)
+    _, b, s, h, kh, d, window, causal = next(sh for sh in KERNEL_SHAPES
+                                             if sh[0] == name)
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
                .to(torch.bfloat16) for n in (h, kh, kh))
 
     def kernel():
-        return flash_attention(q, k, v, causal=True, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     ms = cuda_ms(kernel)
     cold = cold_ms(kernel)
     launch_host_us = host_us(kernel)
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    fp32_ms = cuda_ms(lambda: flash_attention(q32, k32, v32, causal=True,
+    fp32_ms = cuda_ms(lambda: flash_attention(q32, k32, v32, causal=causal,
                                               window=window), iters=5)
     del q32, k32, v32
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True,
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal,
                                                window=window), iters=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if window is None or window >= s:
         # a window no shorter than S masks nothing beyond causality: the
         # causal call (flash backend) computes the same function
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=kh != h))
+            qt, kt, vt, is_causal=causal, enable_gqa=kh != h))
     else:
         pos = torch.arange(s, device=dev)
         mask = (pos[None, :] <= pos[:, None]) & \
             (pos[None, :] > pos[:, None] - window)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=kh != h))
-    # causal (and window) pairs each query sees
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+    # the (query, key) pairs each query sees: all S keys without the
+    # causal clause, else its causal (and window) keys
+    pairs = s * s if not causal else sum(min(i + 1, window or s)
+                                         for i in range(s))
     flops = 4.0 * b * h * d * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     return {"ms": ms, "cold_ms": cold, "launch_host_us": launch_host_us,
@@ -554,7 +579,7 @@ def time_flash(gen, dev, name, max_err) -> dict:
             **bound(flops, PEAK_BF16_OPS_PER_S, nbytes),
             **max_err[(name, "bfloat16")],
             "at": f"{name} B={b} S={s} H={h} K={kh} D={d} window={window} "
-                  "bf16 causal"}
+                  f"bf16 {'causal' if causal else 'non-causal'}"}
 
 
 def time_rglru(gen, dev, name, max_err) -> dict:
@@ -876,7 +901,7 @@ KERNEL_SYMBOLS = {"flash_attention": "fa_fwd", "rglru": "rglru_fwd",
 
 
 def profile_prefills(cfg, params, prompts, *, max_len: int,
-                     counters: dict) -> dict:
+                     counters: dict, engine_cls) -> dict:
     """The slice's prefill calls once more, under ``torch.profiler`` with
     CUDA activity: the same waves of the same prompts, one new token each,
     so each wave runs its wave prefill and its exact re-prefills and no
@@ -886,8 +911,8 @@ def profile_prefills(cfg, params, prompts, *, max_len: int,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request, ServeEngine
-    engine = ServeEngine(cfg, params, n_slots=4, max_len=max_len)
+    from repro_torch.serving import Request
+    engine = engine_cls(cfg, params, n_slots=4, max_len=max_len)
     for i, p in enumerate(prompts):
         engine.submit(Request(rid=i, prompt=p, max_new_tokens=1))
     for kernel in counters:
@@ -930,11 +955,46 @@ def profile_prefills(cfg, params, prompts, *, max_len: int,
     return result
 
 
+def engine_with_frontend(frontend):
+    """A ``ServeEngine`` whose ``_batch_for`` gives every row of every
+    prefill (the wave prefills and the exact re-prefills alike) the one
+    frontend ``frontend`` (1, T, d_model), in place of the package
+    engine's zeros: a re-prefill sees the image or audio its wave saw."""
+    from repro_torch.serving import ServeEngine
+
+    class FrontendEngine(ServeEngine):
+        def _batch_for(self, prompts):
+            batch = super()._batch_for(prompts)
+            batch["frontend"] = frontend.expand(len(prompts), -1, -1)
+            return batch
+
+    return FrontendEngine
+
+
+def frontend_for(cfg, dev):
+    """One seeded frontend (1, n_frontend_tokens, d_model), N(0, 1) * 0.02
+    as the data pipeline draws it, rounded once to the activation dtype so
+    the bf16 and fp32 prefills see the same values."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return (0.02 * torch.randn((1, cfg.n_frontend_tokens, cfg.d_model),
+                               generator=gen, device=dev)
+            ).to(cfg.activation_dtype)
+
+
+def draw_vlm_gates(params: dict, gen) -> None:
+    """Draw the vlm's cross gates, zero at init (tanh 0 = 0: the cross
+    layers would add nothing), from U(-1, 1) in place."""
+    cross = params["supers"]["cross"]
+    for name in ("gate_attn", "gate_mlp"):
+        cross[name].uniform_(-1.0, 1.0, generator=gen)
+
+
 def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
                 compare_wave: int, plain_kw: dict, state: str | None = None,
                 draw_leaves=None, per_call: HeldPerCall | None = None,
                 route_log: RouteLog | None = None,
-                bf16_own_factor: float = 1.0) -> dict:
+                bf16_own_factor: float = 1.0, frontend=None) -> dict:
     """Serve ``prompts`` (16 new tokens each) on 4 slots through the
     kernels, counting each kernel's launches; then hold wave
     ``compare_wave``'s prefill logits (and the cache leaf ``state``, if
@@ -945,14 +1005,19 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     ``wkv_fn`` or ``self_attn`` (its ``arg``); ``route_log``, if given,
     records the MoE routing of the compared prefills and the line counts
     its flips between the paths.  ``bf16_own_factor`` is the logits'
-    ``own_factor`` in ``held_to_plain``."""
+    ``own_factor`` in ``held_to_plain``.  ``frontend`` (1, T, d_model), for
+    the vlm and audio families, goes to every prefill, the compared ones
+    included (``engine_with_frontend``)."""
     import numpy as np
     import torch
 
     from repro_torch.models import zoo
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import _FLOAT32_LEAVES as FLOAT32_LEAVES
+    from repro_torch.models.common import tree_get, tree_leaves
     from repro_torch.serving import Request, ServeEngine
 
+    engine_cls = ServeEngine if frontend is None else \
+        engine_with_frontend(frontend)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = zoo.init(cfg, gen, device=dev)
@@ -962,15 +1027,20 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     assert all(t.device.type == dev.type for t in tree_leaves(params))
+    # the leaves the model reads in fp32 (the vlm's gates among them) stay
+    # fp32 through the cast
+    kept = {path: tree_get(params, path).dtype for path in leaf_paths(params)
+            if path.split("/")[-1] in FLOAT32_LEAVES}
+    assert all(d == torch.float32 for d in kept.values()), kept
 
     # warm-up (cuBLAS handles, kernel libraries), not counted
-    warm = ServeEngine(cfg, params, n_slots=4, max_len=max_len)
+    warm = engine_cls(cfg, params, n_slots=4, max_len=max_len)
     for i in range(2):
         warm.submit(Request(rid=i, prompt=prompts[i][:64 - 7 * i],
                             max_new_tokens=2))
     warm.run()
 
-    engine = ServeEngine(cfg, params, n_slots=4, max_len=max_len)
+    engine = engine_cls(cfg, params, n_slots=4, max_len=max_len)
     for i, p in enumerate(prompts):
         engine.submit(Request(rid=i, prompt=p, max_new_tokens=16))
     torch.cuda.synchronize()
@@ -995,7 +1065,7 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
                 kernel.__name__, launches, engine.prefill_calls)
     tokens = sum(len(r.output) for r in done)
     kernels = profile_prefills(cfg, params, prompts, max_len=max_len,
-                               counters=counters)
+                               counters=counters, engine_cls=engine_cls)
 
     # one wave's prompts, left-padded as the engine pads them: kernel path
     # against the plain path (launches here are not counted)
@@ -1005,6 +1075,8 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
     for i, p in enumerate(wave):
         padded[i, plen - len(p):] = p
     batch = {"tokens": torch.as_tensor(padded, dtype=torch.int64, device=dev)}
+    if frontend is not None:
+        batch["frontend"] = frontend.expand(4, -1, -1)
     cache_len = zoo.cache_max_len(cfg, min(max_len, plen + 16))
     # the same weights with fp32 activations (the bf16 matrices upcast
     # where they are used)
@@ -1018,7 +1090,9 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
             lg, cache = zoo.prefill(c, params, batch, cache_len, **kw)
         if "k" in cache:
             assert cache["k"].device.type == dev.type
-            assert cache["k"].shape[1] == cache_len
+            # (L, S, ...), or the vlm's (supers, self layers, S, ...)
+            seq_dim = 2 if cfg.family == "vlm" else 1
+            assert cache["k"].shape[seq_dim] == cache_len
         runs[key] = (lg, cache[state] if state else None)
         del cache
     torch.cuda.synchronize()
@@ -1075,7 +1149,9 @@ def serve_slice(cfg, dev, prompts, *, max_len: int, counters: dict,
         assert c["ok"], (name, c)
     assert same_argmax
     if per_call is not None:
-        assert per_call.calls == 2 * cfg.n_layers, per_call.calls
+        # the kernel-path prefills in bf16 and fp32, each making every
+        # counted call once
+        assert per_call.calls == 2 * sum(counters.values()), per_call.calls
         assert all(h_["max_err_ratio"] <= 1.0
                    for h_ in per_call.worst.values()), per_call.worst
     del params, runs, lg, lg32, lg_plain
@@ -1544,6 +1620,7 @@ def main() -> int:
           **time_flash(gen, dev, FLASH_TIMED[0], fa_err)}
     fa_d256 = time_flash(gen, dev, FLASH_TIMED[1], fa_err)
     fa_mixtral = time_flash(gen, dev, FLASH_TIMED[2], fa_err)
+    fa_whisper = time_flash(gen, dev, FLASH_TIMED[3], fa_err)
     rg = {"name": "rglru", "route": "cuda",
           "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
           "replaces": "src/repro/kernels/rglru/kernel.py:56",
@@ -1555,8 +1632,9 @@ def main() -> int:
           **time_wkv6(gen, dev, WKV6_TIMED[0], wk_err)}
     wk_b1 = time_wkv6(gen, dev, WKV6_TIMED[1], wk_err)
     for name, t in (("flash_attention", fa), ("flash_attention", fa_d256),
-                    ("flash_attention", fa_mixtral), ("rglru", rg), ("rglru", rg_b1), ("wkv6", wk),
-                    ("wkv6", wk_b1)):
+                    ("flash_attention", fa_mixtral),
+                    ("flash_attention", fa_whisper), ("rglru", rg),
+                    ("rglru", rg_b1), ("wkv6", wk), ("wkv6", wk_b1)):
         emit({"phase": "kernel_time", "kernel": name, **{k_: t[k_] for k_ in (
             "ms", "cold_ms", "launch_host_us", "fp32_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "geometry", "geometry_ms",
@@ -1641,17 +1719,53 @@ def main() -> int:
     assert mixtral["compared_prompt_len"] == 4093
     assert mixtral["compared_cache_len"] == cfg.window
 
-    # 10. train: olmo-1b at full width; its gradients against the plain
+    # 10. slice: llama-3.2-vision-11b at full width and depth (vlm: 32 self
+    # layers through flash, 8 gated cross layers over a 1600-token frontend)
+    cfg = get_config("llama-3.2-vision-11b")
+    frontend = frontend_for(cfg, dev)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(64, 1025, size=8)]
+    # a prompt as long as the frontend would send its cross-attention to
+    # flash too (Sq == Sk), and the launch count below would not hold
+    assert all(len(p) != cfg.n_frontend_tokens for p in prompts)
+    n_self = cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    # 40 bf16 layers, as granite-3-8b: the logits within sqrt(2) times the
+    # plain path's own bf16 error, and each flash call held on its inputs
+    vision = serve_slice(cfg, dev, prompts, max_len=2048,
+                         counters={flash_attention: n_self}, compare_wave=0,
+                         plain_kw={"self_attn": attention_plain},
+                         draw_leaves=draw_vlm_gates,
+                         per_call=HeldFlashPerCall(),
+                         bf16_own_factor=math.sqrt(2.0), frontend=frontend)
+    assert vision["params"] == cfg.param_count() and n_self == 32
+
+    # 11. slice: whisper-small at full width and depth (12 non-causal
+    # encoder and 12 causal decoder self-attentions through flash; decode
+    # reads the cross k/v from the cache)
+    cfg = get_config("whisper-small")
+    frontend = frontend_for(cfg, dev)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(16, 433, size=8)]
+    whisper = serve_slice(cfg, dev, prompts, max_len=448,
+                          counters={flash_attention: cfg.encoder_layers
+                                    + cfg.n_layers}, compare_wave=0,
+                          plain_kw={"self_attn": attention_plain},
+                          per_call=HeldFlashPerCall(), frontend=frontend)
+    assert whisper["params"] == cfg.param_count()
+
+    # 12. train: olmo-1b at full width; its gradients against the plain
     # path; mixtral-8x7b at full width cut in depth
     train = train_olmo(dev)
     train_grad_check(dev)
     moe_train = train_moe(dev)
 
-    # 11. kernels line, card line, result -------------------------------------
+    # 13. kernels line, card line, result -------------------------------------
     by_path = {"olmo-1b": olmo["launches"]["flash_attention"],
                "recurrentgemma-2b": rgemma["launches"]["flash_attention"],
                "granite-3-8b": granite["launches"]["flash_attention"],
                "mixtral-8x7b": mixtral["launches"]["flash_attention"],
+               "llama-3.2-vision-11b": vision["launches"]["flash_attention"],
+               "whisper-small": whisper["launches"]["flash_attention"],
                "olmo-1b train": train["flash_launches"],
                "mixtral-8x7b train": moe_train["flash_launches"]}
     fa["launches"] = sum(by_path.values())
@@ -1665,7 +1779,9 @@ def main() -> int:
         {**{k_: fa[k_] for k_ in flash_keys}, "launches_by_path": by_path,
          "at_d256": {k_: fa_d256[k_] for k_ in flash_keys if k_ in fa_d256},
          "at_mixtral": {k_: fa_mixtral[k_] for k_ in flash_keys
-                        if k_ in fa_mixtral}},
+                        if k_ in fa_mixtral},
+         "at_whisper_encoder": {k_: fa_whisper[k_] for k_ in flash_keys
+                                if k_ in fa_whisper}},
         {**{k_: rg[k_] for k_ in keys},
          "at_b1": {k_: rg_b1[k_] for k_ in keys if k_ in rg_b1}},
         {**{k_: wk[k_] for k_ in keys},

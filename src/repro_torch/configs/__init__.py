@@ -1,14 +1,13 @@
-"""Config registry of the port: own copies of the reference's configs
-that the port serves (dense, moe, hybrid and ssm), each with ``CONFIG``
-(full width) and ``SMOKE`` exactly as in ``repro.configs``.  The vlm and
-audio architectures wait for their slice of the port (ROADMAP.md,
-"Modules to port")."""
+"""Config registry of the port: own copies of all ten of the reference's
+architectures (dense, moe, hybrid, ssm, vlm and audio), each with
+``CONFIG`` (full width) and ``SMOKE`` exactly as in ``repro.configs``."""
 
 from __future__ import annotations
 
 from repro_torch.configs import (codeqwen1_5_7b, granite_3_8b, llama3_405b,
-                                llama4_scout_17b_a16e, mixtral_8x7b, olmo_1b,
-                                recurrentgemma_2b, rwkv6_1_6b)
+                                llama4_scout_17b_a16e, llama_3_2_vision_11b,
+                                mixtral_8x7b, olmo_1b, recurrentgemma_2b,
+                                rwkv6_1_6b, whisper_small)
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -18,21 +17,16 @@ _MODULES = {
     "olmo-1b": olmo_1b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "mixtral-8x7b": mixtral_8x7b,
-    "recurrentgemma-2b": recurrentgemma_2b,
     "rwkv6-1.6b": rwkv6_1_6b,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b,
+    "recurrentgemma-2b": recurrentgemma_2b,
+    "whisper-small": whisper_small,
 }
-
-# the reference's architectures that this port does not serve yet
-_NOT_PORTED = ("llama-3.2-vision-11b", "whisper-small")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet; see "
-            "ROADMAP.md, 'Modules to port'")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = _MODULES[arch_id]

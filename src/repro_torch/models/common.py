@@ -190,6 +190,8 @@ _FLOAT32_LEAVES = (
     "u",          # RWKV6 current-token bonus (the WKV6 kernel takes fp32)
     "ln_x",       # RWKV6 group-norm scale (applied in fp32)
     "router",     # MoE router (logits and softmax in fp32)
+    "gate_attn",  # vlm cross-attention gates (tanh in fp32)
+    "gate_mlp",
 )
 
 
@@ -202,8 +204,9 @@ def cast_matrices(params: Params, dtype: torch.dtype) -> Params:
     tree cast once to that dtype gives the same numbers while the per-step
     casts become no-ops.  Norm scales and ``_FLOAT32_LEAVES`` stay in
     their own dtype: the model reads them in float32, and a bf16 copy of
-    ``log_a``, ``w0`` or ``w_lora_b`` would move every decay rate, and a
-    bf16 ``router`` would route tokens to other experts."""
+    ``log_a``, ``w0`` or ``w_lora_b`` would move every decay rate, a bf16
+    ``router`` would route tokens to other experts and a bf16 vlm gate
+    would change ``tanh(gate)``."""
     def cast(path: str, t: torch.Tensor) -> torch.Tensor:
         name = path.split("/")[-1]
         if name.endswith("norm") or name in _FLOAT32_LEAVES:

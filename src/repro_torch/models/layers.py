@@ -195,6 +195,14 @@ def _attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Unmasked attention of q (B,Sq,H,D) over k/v (B,Sk,K,D), as the
+    reference's: ``attention`` with ``causal=False`` (the dense math where
+    Sq != Sk)."""
+    return attention(q, k, v, causal=False, window=None, softcap=softcap)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      window: int | None = None) -> torch.Tensor:

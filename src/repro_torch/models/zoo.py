@@ -1,6 +1,5 @@
-"""Family dispatch: the reference's uniform model interface, for the
-``dense``, ``moe``, ``hybrid`` and ``ssm`` families so far (vlm and audio
-raise ``NotImplementedError``)."""
+"""Family dispatch: the reference's uniform model interface over its six
+model families (dense, moe, hybrid, ssm, vlm and audio)."""
 
 from __future__ import annotations
 
@@ -8,18 +7,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models import recurrentgemma, rwkv6, transformer
+from repro_torch.models import (recurrentgemma, rwkv6, transformer, vlm,
+                                whisper)
 from repro_torch.models.common import ModelConfig
 
 FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                  "hybrid": recurrentgemma, "ssm": rwkv6}
+                  "hybrid": recurrentgemma, "ssm": rwkv6, "vlm": vlm,
+                  "audio": whisper}
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in FAMILY_MODULES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.arch_id}) is not ported to "
-            "repro_torch yet; see ROADMAP.md")
     return FAMILY_MODULES[cfg.family]
 
 
@@ -41,13 +38,14 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
 
 
 def needs_frontend(cfg: ModelConfig) -> bool:
-    """Whether the family takes frontend (modality) tokens: vlm and audio,
-    none of the ported families."""
+    """Whether the family takes frontend (modality) tokens: vlm and
+    audio."""
     return cfg.family in ("vlm", "audio")
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, **kw):
-    """batch: tokens (B,S). Returns (logits, aux_loss)."""
+    """batch: tokens (B,S) [+ frontend (B,T,d) for vlm and audio].
+    Returns (logits, aux_loss)."""
     return module_for(cfg).forward(cfg, params, batch, **kw)
 
 
@@ -56,6 +54,10 @@ def cache_max_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, **kw):
+    """batch: tokens (B,S) [+ frontend for vlm and audio: zeros if
+    absent, as in the reference]."""
+    if needs_frontend(cfg):
+        kw["frontend"] = batch.get("frontend")
     return module_for(cfg).prefill(cfg, params, batch["tokens"], max_len,
                                    **kw)
 

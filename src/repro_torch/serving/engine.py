@@ -1,13 +1,15 @@
 """Batched serving engine: static-wave batching over a fixed slot set.
 
 Port of ``repro.serving.engine`` (``Request``, ``WaveStats``,
-``ServeEngine``).  Requests are served in WAVES of up to ``n_slots``: one
+``ServeEngine`` and ``wave_op_graph``).  Requests are served in WAVES of up to ``n_slots``: one
 batched prefill of the prompts LEFT-padded to the wave's longest, then
 lock-step decode until every slot is done.  Left-padding alone is not
 exact for shorter prompts (causal attention has no pad mask), so each
 distinct shorter length gets one exact, unpadded re-prefill that supplies
 its first token, as in the reference.  Decode runs eagerly, one
 ``decode_step`` per lock-step token; the cache is updated in place.
+Every prefill's batch comes from ``_batch_for``: the tokens and, for the
+vlm and audio families, a zero frontend, as in the reference.
 
 The engine follows its params' device.  ``prefill_calls`` counts model
 prefills (wave prefills and exact re-prefills), which is how many times
@@ -25,6 +27,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core.graph import GraphBuilder, OpGraph
 from repro_torch.models import zoo
 from repro_torch.models.common import ModelConfig
 
@@ -73,11 +76,19 @@ class ServeEngine:
         self.queue.append(req)
 
     # ------------------------------------------------------------------
+    def _batch_for(self, prompts: np.ndarray) -> dict:
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                           device=self.device)}
+        if zoo.needs_frontend(self.cfg):
+            batch["frontend"] = torch.zeros(
+                (prompts.shape[0], self.cfg.n_frontend_tokens,
+                 self.cfg.d_model), dtype=self.cfg.activation_dtype,
+                device=self.device)
+        return batch
+
     def _prefill(self, prompts: np.ndarray, cache_len: int):
         self.prefill_calls += 1
-        tokens = torch.as_tensor(prompts, dtype=torch.int64,
-                                 device=self.device)
-        return zoo.prefill(self.cfg, self.params, {"tokens": tokens},
+        return zoo.prefill(self.cfg, self.params, self._batch_for(prompts),
                            cache_len)
 
     def _exact_short_logits(self, wave: list[Request], plen: int,
@@ -174,3 +185,67 @@ class ServeEngine:
         reqs = list(self.queue)
         return [reqs[i:i + self.n_slots]
                 for i in range(0, len(reqs), self.n_slots)]
+
+
+def wave_op_graph(cfg: ModelConfig, wave: list[Request], *,
+                  n_slots: int | None = None,
+                  name: str | None = None) -> OpGraph:
+    """Analytic op graph of one serving wave (batched prefill + lock-step
+    decode), in the same IR the paper's runtime schedules.
+
+    Per-layer prefill ops carry the wave's (n_requests, prompt_len) token
+    block; decode is one small op per lock-step token.  Flops/bytes use
+    the standard transformer estimates (attn 8*d^2 + mlp ~6*d*d_ff per
+    token-layer), so the pool's perfmodel sees prefill as big tunable ops
+    and decode as the Strategy-4 "small op" population — exactly the mix
+    that benefits from co-scheduling against a training tenant.
+
+    ``n_slots``: the engine computes full n_slots-row batches even for a
+    partial final wave (padding rows are real machine load), so cost
+    terms use the padded batch when given."""
+    if not wave:
+        raise ValueError("wave_op_graph: empty wave (no requests)")
+    n = max(len(wave), n_slots or 0)
+    plen = max(len(r.prompt) for r in wave)
+    # worst-case lock-step decode length, exactly as _run_wave bounds its
+    # loop (max_len sizes the KV cache there, it does not cap the steps)
+    max_new = max(r.max_new_tokens for r in wave)
+    d = float(cfg.d_model)
+    dff = float(cfg.d_ff)
+    layer_params = 4 * d * d + 3 * d * dff      # attn qkvo + swiglu mlp
+    b = GraphBuilder(name or f"{cfg.arch_id}-wave")
+    tok = float(n * plen)
+    prev = b.add("wave_embed", (n, plen, cfg.d_model),
+                 flops=2 * tok * d, bytes_moved=tok * d * 4,
+                 parallel_fraction=0.85, tunable=False)
+    for li in range(cfg.n_layers):
+        attn = b.add("wave_prefill_attn", (n, plen, cfg.d_model),
+                     deps=[prev],
+                     flops=tok * (8 * d * d) + 4 * tok * plen * d,
+                     bytes_moved=tok * d * 8,
+                     parallel_fraction=0.97,
+                     name=f"wave_prefill_attn/{li}")
+        prev = b.add("wave_prefill_mlp", (n, plen, cfg.d_model),
+                     deps=[attn],
+                     flops=tok * 6 * d * dff, bytes_moved=tok * d * 6,
+                     parallel_fraction=0.98,
+                     name=f"wave_prefill_mlp/{li}")
+    # the prefill logits produce the wave's first token (unembed once)…
+    prev = b.add("wave_unembed", (n, 1, cfg.d_model), deps=[prev],
+                 flops=2 * n * d * cfg.vocab, bytes_moved=n * d * 4,
+                 parallel_fraction=0.95, tunable=False)
+    # …then lock-step decode: each step touches every weight once for n
+    # tokens INCLUDING the logits projection the engine runs per step —
+    # bandwidth-bound small ops chained by the autoregressive dependency.
+    # max_new - 1 steps, not max_new: the first generated token came from
+    # prefill above (see ServeEngine._run_wave).
+    step_params = cfg.n_layers * layer_params + d * cfg.vocab
+    step_flops = 2.0 * n * step_params
+    step_bytes = step_params * 2.0                 # stream weights (bf16)
+    for s in range(max(max_new - 1, 0)):
+        prev = b.add("wave_decode_step", (n, 1, cfg.d_model), deps=[prev],
+                     flops=step_flops, bytes_moved=step_bytes,
+                     working_set=step_bytes,
+                     parallel_fraction=0.80,
+                     name=f"wave_decode_step/{s}")
+    return b.build()

@@ -168,7 +168,10 @@ class CheckpointManager:
                 ) -> tuple[dict, dict, int] | None:
         """Returns (state, extra, step) with the state's tensors on
         ``device`` (the manager's own by default), or None if there is no
-        checkpoint."""
+        checkpoint.  A save still being written lands first, so a restore
+        right after ``save`` (``run_with_recovery`` after a failure) reads
+        it back."""
+        self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:

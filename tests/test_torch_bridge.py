@@ -19,7 +19,8 @@ from repro_torch.models import zoo
 from repro_torch.models.common import cast_matrices, tree_leaves
 
 ARCHS = ["olmo-1b", "granite-3-8b", "codeqwen1.5-7b", "recurrentgemma-2b",
-         "rwkv6-1.6b", "mixtral-8x7b", "llama4-scout-17b-a16e", "llama3-405b"]
+         "rwkv6-1.6b", "mixtral-8x7b", "llama4-scout-17b-a16e", "llama3-405b",
+         "llama-3.2-vision-11b", "whisper-small"]
 
 
 def _flat(tree, prefix=""):
@@ -180,6 +181,46 @@ def test_cast_matrices_keeps_moe_router_float32():
     assert torch.equal(logits, logits_cast) and torch.equal(aux, aux_cast)
 
 
+def test_cast_matrices_keeps_vlm_gates_float32():
+    """The vlm's cross gates are read in float32 (``tanh(gate)``): a tree
+    cast once to bf16 keeps them so, and gives the uncast tree's logits
+    with the gates drawn from U(-1, 1) and a random frontend."""
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b", smoke=True),
+                              dtype="bfloat16")
+    gen = torch.Generator("cpu").manual_seed(4)
+    p = zoo.init(cfg, gen, device="cpu")
+    cross = p["supers"]["cross"]
+    for name in ("gate_attn", "gate_mlp"):
+        cross[name] = torch.empty_like(cross[name]).uniform_(
+            -1.0, 1.0, generator=gen)
+    cast = cast_matrices(p, torch.bfloat16)
+    gates = ("supers/cross/gate_attn", "supers/cross/gate_mlp")
+    for path, t in _flat(cast).items():
+        keep = path in gates or path.endswith("norm")
+        assert t.dtype == (torch.float32 if keep else torch.bfloat16), path
+    gate = cross["gate_attn"]
+    assert not torch.equal(gate.to(torch.bfloat16).float(), gate)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 9), generator=gen),
+             "frontend": 0.02 * torch.randn(
+                 (2, cfg.n_frontend_tokens, cfg.d_model), generator=gen)}
+    logits, _ = zoo.forward(cfg, p, batch)
+    logits_cast, _ = zoo.forward(cfg, cast, batch)
+    assert logits.dtype == torch.bfloat16
+    assert torch.equal(logits, logits_cast)
+
+
+def test_every_reference_arch_is_served():
+    """All ten of the reference's architectures, in its order, and its six
+    model families."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro.models.zoo import FAMILY_MODULES as JAX_FAMILIES
+    from repro_torch.configs import ARCH_IDS
+    assert ARCH_IDS == JAX_ARCH_IDS
+    assert set(zoo.FAMILY_MODULES) == set(JAX_FAMILIES)
+    for arch in ARCH_IDS:
+        assert zoo.module_for(get_config(arch)) is not None
+
+
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the refusal path cannot be exercised")
@@ -187,5 +228,5 @@ def test_entry_points_refuse_missing_cuda():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         zoo.init(get_config("olmo-1b", smoke=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.init(get_config("whisper-small", smoke=True))

@@ -2,9 +2,12 @@
 ``repro.data``, ``repro.models.zoo``), on the CPU.
 
 * Gradients of ``zoo.loss_fn`` for olmo-1b, recurrentgemma-2b,
-  rwkv6-1.6b and mixtral-8x7b (its MoE aux term included; smoke configs,
-  float32; rwkv6's six zero-initialised leaves
-  drawn non-zero as ``tests/test_torch_rwkv6.py`` draws them) against
+  rwkv6-1.6b, mixtral-8x7b (its MoE aux term included),
+  llama-3.2-vision-11b and whisper-small (smoke configs, float32; rwkv6's
+  six zero-initialised leaves drawn non-zero as
+  ``tests/test_torch_rwkv6.py`` draws them, the vlm's two zero-initialised
+  cross gates drawn as ``tests/test_torch_vlm.py`` draws them, and a
+  random frontend in the vlm and audio batches) against
   ``jax.grad`` of the reference's, per leaf within ``GRAD_TOL`` of the
   leaf's largest |g|: the reference sums in other orders, and runs the
   RG-LRU as an associative scan and the WKV6 in its chunked form where
@@ -18,7 +21,7 @@
   params are compared where |g| is far above the two packages' gradient
   gap (``_significant``); loss, lr, grad_norm, mu and nu everywhere.
 * The 4-step loss decrease of tests/test_models_smoke.py on the four
-  smoke configs.
+  smoke configs, and on the vlm and audio ones.
 * Checkpoints saved by either package restore in the other (bf16
   moments included) and both lay out the same files; ``latest_step``,
   ``keep_last_k``, ``LATEST`` and ``run_with_recovery`` behave as the
@@ -36,6 +39,7 @@
 import dataclasses
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -77,8 +81,11 @@ from repro_torch.train import (CheckpointManager, TrainConfig, abstract_state,
                                make_serve_step, make_train_step,
                                run_with_recovery)
 from test_torch_rwkv6 import draw_params
+from test_torch_vlm import draw_gates, frontend_np
 
 ARCHS = ("olmo-1b", "recurrentgemma-2b", "rwkv6-1.6b", "mixtral-8x7b")
+# the families whose batches carry a frontend
+FRONTEND_ARCHS = ("llama-3.2-vision-11b", "whisper-small")
 B, S = 2, 12
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 _XLA_OPTS = {"xla_allow_excess_precision": False}
@@ -115,13 +122,14 @@ def _compiled(fn, *args):
 def smoke_params():
     """Float32 numpy params per arch, as both packages take them."""
     out = {}
-    for arch in ARCHS:
+    for arch in (*ARCHS, *FRONTEND_ARCHS):
         jcfg = jax_get_config(arch, smoke=True)
         if arch == "rwkv6-1.6b":
             out[arch] = draw_params(jax_zoo.abstract(jcfg))
         else:
             out[arch] = jax.tree.map(
                 np.asarray, jax_zoo.init(jcfg, jax.random.PRNGKey(0)))
+    out["llama-3.2-vision-11b"] = draw_gates(out["llama-3.2-vision-11b"])
     return out
 
 
@@ -156,6 +164,8 @@ GRAD_CASES = {
     "rwkv6-1.6b-clip": ("rwkv6-1.6b", "float32", (-8.0, 3.5)),
     "olmo-1b-bf16": ("olmo-1b", "bfloat16", None),
     "mixtral-8x7b": ("mixtral-8x7b", "float32", None),
+    "llama-3.2-vision-11b": ("llama-3.2-vision-11b", "float32", None),
+    "whisper-small": ("whisper-small", "float32", None),
 }
 
 
@@ -179,6 +189,8 @@ def test_loss_gradients_match_reference(smoke_params, case):
         params["layers"]["w0"] = np.random.default_rng(11).uniform(
             *w0_range, params["layers"]["w0"].shape).astype(np.float32)
     batch = _batch_np(cfg.vocab)
+    if zoo.needs_frontend(cfg):
+        batch["frontend"] = frontend_np(cfg)
     jargs = (_jnp(params), _jnp(batch))
     jloss, jgrads = _compiled(jax.value_and_grad(
         lambda p, b: jax_zoo.loss_fn(jcfg, p, b)[0]), *jargs)(*jargs)
@@ -274,7 +286,7 @@ def test_train_step_matches_reference(smoke_params, arch, scheme):
             assert gap <= 1e-4 * g_max, (path, gap, g_max)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [*ARCHS, *FRONTEND_ARCHS])
 def test_train_step_decreases_loss_and_finite(arch):
     """tests/test_models_smoke.py's 4-step check, on the port."""
     cfg = get_config(arch, smoke=True)
@@ -286,6 +298,8 @@ def test_train_step_decreases_loss_and_finite(arch):
     toks = torch.from_numpy(np.random.default_rng(100).integers(
         0, cfg.vocab, (2, 16)))
     batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+    if zoo.needs_frontend(cfg):
+        batch["frontend"] = torch.from_numpy(frontend_np(cfg))
     losses = []
     for _ in range(4):
         state, m = step(state, batch)
@@ -467,6 +481,26 @@ def test_recovery_ends_in_the_uninterrupted_state(tmp_path):
     for path, t in finals[0].items():
         assert torch.equal(finals[1][path], t), path
 
+
+
+def test_restore_waits_for_the_save_in_flight(tmp_path, monkeypatch):
+    """A save whose background write is slow is read back by a restore
+    that starts before it lands: ``run_with_recovery`` restores right after
+    a failure, and the step before it may have just saved (without the wait
+    it found no LATEST and restarted from step 0)."""
+    import repro_torch.train.checkpoint as ckpt
+    savez = np.savez
+
+    def slow_savez(*args, **kw):
+        time.sleep(0.3)
+        savez(*args, **kw)
+
+    monkeypatch.setattr(ckpt.np, "savez", slow_savez)
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(2, {"w": torch.arange(3.0)}, extra={"data_cursor": 2})
+    restored, extra, step = manager.restore()
+    assert step == 2 and extra == {"data_cursor": 2}
+    assert torch.equal(restored["w"], torch.arange(3.0))
 
 
 def test_restore_lands_on_the_manager_device(tmp_path):
