@@ -43,8 +43,9 @@ Phases, one JSON line each:
   4. kernel_time  each kernel's time, its plain version's, a PyTorch call
              that computes the same function where one exists (a yardstick
              the port never calls), the least time the card could take
-             (bound) and the host time of one wrapper call, at the main
-             paths' shapes: for the recurrences at the B=4 wave prefill and
+             (bound: the kernel's ``cost`` in its ``ops.py``, which the
+             dry-run counts too, over ``hw.spec``'s peaks) and the host
+             time of one wrapper call, at the main paths' shapes: for the recurrences at the B=4 wave prefill and
              the B=1 re-prefill, for WKV6 also both of its geometries; for
              flash attention also the time with L2 flushed before each
              launch (``cold_ms``), and the non-causal whisper-small encoder
@@ -130,7 +131,23 @@ Phases, one JSON line each:
              kernel (``plain_attention_witness``: its losses, grad norms,
              ce and aux), to rule the kernel in or out of what the routing
              does.  2 layers do not fit: the step holds the old and the new
-             state at once (see ``MOE_TRAIN_LAYERS``).
+             state at once (see ``MOE_TRAIN_LAYERS``);
+  15. dryrun  every (arch x shape) cell of the reference's matrix (10
+             archs x 4 shapes; 7 skipped for the reference's reason)
+             counted on the meta device at full depth by
+             ``repro_torch.launch.dryrun`` against the card's spec
+             (``H100Spec.from_device``): a line a cell with its flops by
+             class, bytes, peak, the roofline terms and whether it fits
+             the card, and a summary (cells counted, skipped, fitting,
+             seconds);
+  16. dryrun_vs_card  the shapes this call ran, counted the same way,
+             beside the card's measurements: the olmo-1b train phase,
+             train_moe and the olmo-1b served prefill (B=4, S=512, 6
+             calls): predicted peak against ``max_memory_allocated`` (less
+             what was allocated before the phase; within 10 %), counted
+             flops by class against 6·N·T, and the measured median step
+             against the roofline's ``step_s_overlapped`` (the share of it
+             the step reaches at most 1.05).
 Each slice zeroes every kernel's launch counter just before it serves and
 reads them just after; then runs its 8 prefill calls once more (the same
 waves, one new token each, so no decode) under ``torch.profiler`` and
@@ -163,9 +180,6 @@ import sys
 import time
 from pathlib import Path
 
-PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-PEAK_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
-PEAK_F32_OPS_PER_S = 67e12    # fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 RGLRU_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # (atol, rtol): test_kernels.py's WKV6 tolerances in fp32 (5e-4 and 5e-3
@@ -351,14 +365,17 @@ def host_us(fn, iters: int = 100) -> float:
     return t
 
 
-def bound(flops: float, peak_ops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations
-    over their peak rate and the bytes over the memory rate."""
-    op_ms = flops / peak_ops * 1e3
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(cost: dict) -> dict:
+    """The least time the card could take for a kernel call of ``cost``
+    (its ``kernels/*/ops.py``'s ``cost``, the dry-run's count of it): the
+    larger of the operations over their class's peak rate and the bytes
+    over the memory rate (``hw.spec``'s data-sheet H100)."""
+    from repro_torch.hw import H100
+    op_ms = cost["flops"] / H100.peak(cost["peak_class"]) * 1e3
+    byte_ms = H100.memory_time(cost["bytes"]) * 1e3
     return {"bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms > byte_ms else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "flops": cost["flops"], "bytes": cost["bytes"]}
 
 
 def dtype_name(dtype) -> str:
@@ -538,6 +555,7 @@ def time_flash(gen, dev, name, max_err) -> dict:
 
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     _, b, s, h, kh, d, window, causal = next(sh for sh in KERNEL_SHAPES
                                              if sh[0] == name)
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
@@ -567,16 +585,11 @@ def time_flash(gen, dev, name, max_err) -> dict:
             (pos[None, :] > pos[:, None] - window)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=kh != h))
-    # the (query, key) pairs each query sees: all S keys without the
-    # causal clause, else its causal (and window) keys
-    pairs = s * s if not causal else sum(min(i + 1, window or s)
-                                         for i in range(s))
-    flops = 4.0 * b * h * d * pairs
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     return {"ms": ms, "cold_ms": cold, "launch_host_us": launch_host_us,
             "fp32_ms": fp32_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
-            **bound(flops, PEAK_BF16_OPS_PER_S, nbytes),
+            **bound(flash_ops.cost(b, s, h, kh, d, causal=causal,
+                                   window=window, dtype=q.dtype)),
             **max_err[(name, "bfloat16")],
             "at": f"{name} B={b} S={s} H={h} K={kh} D={d} window={window} "
                   f"bf16 {'causal' if causal else 'non-causal'}"}
@@ -588,6 +601,7 @@ def time_rglru(gen, dev, name, max_err) -> dict:
     recurrence, so there is no yardstick."""
     import torch
 
+    from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.rglru import rglru, rglru_plain
     _, b, s, r, a_const = next(sh for sh in RGLRU_SHAPES if sh[0] == name)
     a, x = rglru_inputs(gen, dev, b, s, r, a_const, torch.bfloat16)
@@ -596,13 +610,9 @@ def time_rglru(gen, dev, name, max_err) -> dict:
     a32, x32 = a.float(), x.float()
     fp32_ms = cuda_ms(lambda: rglru(a32, x32))
     plain_ms = cuda_ms(lambda: rglru_plain(a, x), iters=3, warmup=1)
-    n = b * s * r
-    # per element: a*a, 1-, max, sqrt, *x, a*h, + (fp32, no tensor cores);
-    # bytes: a and x read once, h written once (bf16), h_last (fp32)
-    nbytes = 3 * n * 2 + b * r * 4
     return {"ms": ms, "launch_host_us": launch_host_us, "fp32_ms": fp32_ms,
             "plain_ms": plain_ms, "library_ms": None,
-            **bound(7.0 * n, PEAK_F32_OPS_PER_S, nbytes),
+            **bound(rglru_ops.cost(b, s, r, a.dtype)),
             **max_err[(name, "bfloat16")],
             "at": f"{name} B={b} S={s} R={r} bf16"}
 
@@ -686,18 +696,11 @@ def time_wkv6(gen, dev, name, max_err) -> dict:
     fp32_ms = cuda_ms(lambda: wkv6(*args32, floor=floor))
     plain_ms = cuda_ms(lambda: wkv6_plain(*args, floor=floor), iters=3,
                        warmup=1)
-    n = b * h * s
-    # per (b, h, t): k v^T (D^2), the decayed state (2 D^2), r^T S (2 D^2)
-    # and the bonus (r.(u*k)) v (4 D), float32 outside the tensor cores;
-    # bytes: r, k, v, w read once and out written once (bf16), u read and
-    # the state written (fp32)
-    flops = n * (5.0 * d * d + 4.0 * d)
-    nbytes = 5 * n * d * 2 + h * d * 4 + b * h * d * d * 4
     return {"ms": ms, "launch_host_us": launch_host_us, "fp32_ms": fp32_ms,
             "plain_ms": plain_ms, "library_ms": None,
             "geometry": "{}x{}".format(*wkv6_ops.geometry(b, h, d)),
             "geometry_ms": geometry_ms,
-            **bound(flops, PEAK_F32_OPS_PER_S, nbytes),
+            **bound(wkv6_ops.cost(b, h, s, d, args[0].dtype)),
             **max_err[(name, "bfloat16")],
             "at": f"{name} B={b} H={h} S={s} D={d} bf16, (B,S,H,D) strides"}
 
@@ -1257,6 +1260,29 @@ def profile_train_step(step, state, batch, arch: str) -> dict:
                 names.items(), key=lambda kv: -kv[1])[:8]]}
 
 
+def olmo_train_setup():
+    """The olmo-1b train phase's config and ``TrainConfig``."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    return get_config("olmo-1b"), TrainConfig(
+        microbatches=TRAIN_MICRO, remat=True,
+        optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                              total_steps=TRAIN_STEPS))
+
+
+def moe_train_setup():
+    """The train_moe phase's config (mixtral-8x7b cut in depth) and
+    ``TrainConfig``."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    return (dataclasses.replace(get_config("mixtral-8x7b"),
+                                n_layers=MOE_TRAIN_LAYERS),
+            TrainConfig(remat=True, optimizer=AdamWConfig(
+                lr=TRAIN_LR, warmup_steps=1, total_steps=MOE_TRAIN_STEPS)))
+
+
 def train_olmo(dev) -> dict:
     """The train phase: olmo-1b at full width (random weights from seed 0,
     fp32 params, bf16 activations), AdamW with fp32 moments,
@@ -1268,19 +1294,16 @@ def train_olmo(dev) -> dict:
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.hw import H100
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.common import tree_leaves
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.train import init_state, make_train_step
 
-    cfg = get_config("olmo-1b")
-    tcfg = TrainConfig(microbatches=TRAIN_MICRO, remat=True,
-                       optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                                             total_steps=TRAIN_STEPS))
+    cfg, tcfg = olmo_train_setup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(0),
                        device=dev)
@@ -1323,11 +1346,11 @@ def train_olmo(dev) -> dict:
         "median_step_s_2_to_4": median_s,
         "tokens_per_s": tokens / median_s,
         "flops_per_step_6NT": flops,
-        "bf16_peak_share": flops / median_s / PEAK_BF16_OPS_PER_S,
+        "bf16_peak_share": flops / median_s / H100.peak_bf16_flops,
         "loss": losses, "lr_per_step": [m["lr"] for m in metrics],
         "grad_norm": [m["grad_norm"] for m in metrics],
-        "peak_mem_bytes": peak, "flash_launches": launches,
-        "expected_flash_launches": expected,
+        "peak_mem_bytes": peak, "mem_at_reset_bytes": base,
+        "flash_launches": launches, "expected_flash_launches": expected,
         "ok": finite and losses[-1] < losses[0] and launches == expected}
     emit(kernels)
     emit(result)
@@ -1356,20 +1379,17 @@ def train_moe(dev) -> dict:
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.hw import H100
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import zoo
     from repro_torch.models.common import tree_leaves
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.train import init_state, make_train_step
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
-                              n_layers=MOE_TRAIN_LAYERS)
-    tcfg = TrainConfig(remat=True, optimizer=AdamWConfig(
-        lr=TRAIN_LR, warmup_steps=1, total_steps=MOE_TRAIN_STEPS))
+    cfg, tcfg = moe_train_setup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(0),
                        device=dev)
@@ -1428,15 +1448,15 @@ def train_moe(dev) -> dict:
         "median_step_s_2_to_3": median_s,
         "tokens_per_s": tokens / median_s,
         "flops_per_step_6_active_T": flops,
-        "bf16_peak_share": flops / median_s / PEAK_BF16_OPS_PER_S,
+        "bf16_peak_share": flops / median_s / H100.peak_bf16_flops,
         "loss": losses, "lr_per_step": [m["lr"] for m in metrics],
         "grad_norm": [m["grad_norm"] for m in metrics],
         "initial_ce": float(first["ce"]), "initial_aux": float(first["aux"]),
         "final_loss": float(loss), "final_ce": float(parts["ce"]),
         "final_aux": float(parts["aux"]),
         "router_grad_norm": router_grad_norm,
-        "peak_mem_bytes": peak, "flash_launches": launches,
-        "expected_flash_launches": expected}
+        "peak_mem_bytes": peak, "mem_at_reset_bytes": base,
+        "flash_launches": launches, "expected_flash_launches": expected}
     del state
     torch.cuda.empty_cache()
     result["plain_attention_witness"] = moe_plain_witness(cfg, tcfg, dev,
@@ -1569,6 +1589,153 @@ def train_grad_check(dev) -> dict:
     return result
 
 
+def dryrun_matrix(spec) -> dict:
+    """The dryrun phase: every (arch x shape) cell of the reference's
+    matrix counted on meta at full depth (``launch.dryrun.run_cells``)
+    against ``spec``, the card's: one line a cell (its roofline terms,
+    dominant term, peak and whether it fits the card; or the reference's
+    reason to skip it) and a summary.  A cell that fails to count raises."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    records = dryrun.run_cells(ARCH_IDS, SHAPES, None, spec=spec,
+                               verbose=False, raise_errors=True)
+    seconds = time.perf_counter() - t0
+    for rec in records:
+        if "skipped" in rec:
+            emit({"phase": "dryrun_cell", **rec})
+            continue
+        r = rec["roofline"]
+        emit({"phase": "dryrun_cell", "arch": rec["arch"],
+              "shape": rec["shape"], "kind": rec["kind"],
+              "microbatches": rec["microbatches"],
+              "flops_by_dtype": rec["flops_by_dtype"],
+              "bytes": rec["bytes_per_device"],
+              "peak_bytes": rec["hbm_bytes_per_device_est"],
+              "fits_hbm": rec["fits_hbm"], "compute_s": r["compute_s"],
+              "memory_s": r["memory_s"], "dominant": r["dominant"],
+              "step_s_overlapped": r["step_s_overlapped"],
+              "useful_flops_ratio": rec["useful_flops_ratio"],
+              "kernel_calls": {k: v["calls"]
+                               for k, v in rec["kernels"].items()},
+              "count_s": rec["compile_seconds"]})
+    counted = [r for r in records if "roofline" in r]
+    result = {"phase": "dryrun", "cells": len(records),
+              "counted": len(counted),
+              "skipped": {f"{r['arch']} {r['shape']}": r["skipped"]
+                          for r in records if "skipped" in r},
+              "fit": [f"{r['arch']} {r['shape']}" for r in counted
+                      if r["fits_hbm"]],
+              "depth": "full (no extrapolation)", "seconds": seconds,
+              "spec": dataclasses.asdict(spec),
+              "ok": len(records) == len(ARCH_IDS) * len(SHAPES) == 40
+              and all("roofline" in r or "skipped" in r for r in records)}
+    emit(result)
+    assert result["ok"], result
+    return result
+
+
+# the olmo-1b served prefill the dry-run is held to: the olmo-1b slice's
+# longest wave (B=4, S=512), timed over PREFILL_CALLS calls
+PREFILL_BATCH, PREFILL_SEQ, PREFILL_CALLS = 4, 512, 6
+
+
+def card_prefill(dev, cfg, max_len: int) -> dict:
+    """The olmo-1b served prefill on the card: params cast as the slice
+    casts them, ``PREFILL_CALLS`` calls of ``zoo.prefill`` (each to a
+    sync), the median of all but the first, and the peak above what was
+    allocated before the first, with the params' and tokens' bytes."""
+    import statistics
+
+    import torch
+
+    from repro_torch.hw.cost import addressed_bytes, tensor_leaves
+    from repro_torch.models import zoo
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = zoo.init(cfg, gen, device=dev)
+    cast_as_you_go(params, cfg.activation_dtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab,
+                                     (PREFILL_BATCH, PREFILL_SEQ),
+                                     generator=gen, device=dev)}
+    args = sum(addressed_bytes(t) for t in tensor_leaves((params, batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    with torch.no_grad():
+        for _ in range(PREFILL_CALLS):
+            t0 = time.perf_counter()
+            out = zoo.prefill(cfg, params, batch, max_len)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
+    peak = torch.cuda.max_memory_allocated()
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"median_s": statistics.median(times[1:]),
+            "peak_bytes": peak - base + args}
+
+
+def dryrun_vs_card(dev, spec, train: dict, moe_train: dict) -> list:
+    """The dryrun_vs_card phase: the shapes the card ran in this call
+    counted on meta (``launch.dryrun.lower_cell``), beside what the card
+    measured: the olmo-1b train phase, train_moe and the olmo-1b served
+    prefill.  For each, the predicted peak (arguments and all they
+    allocate) against the card's (``max_memory_allocated`` less what was
+    allocated before the phase began, the phase's own arguments included)
+    and their ratio (within 10 %); the counted flops by class against
+    6·N·T (2·N·T to serve); the measured median step against the
+    roofline's ``step_s_overlapped`` and the share of it the step reaches
+    (at most 1.05: no step may run faster than its bound)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models import zoo
+
+    olmo, olmo_tcfg = olmo_train_setup()
+    moe, moe_tcfg = moe_train_setup()
+    prefill = ShapeSpec("olmo-1b served prefill", "prefill", PREFILL_SEQ,
+                        PREFILL_BATCH)
+    card = card_prefill(dev, olmo, zoo.cache_max_len(olmo, PREFILL_SEQ))
+    cells = (
+        (olmo, olmo_tcfg, ShapeSpec("olmo-1b train", "train", TRAIN_SEQ,
+                                    TRAIN_BATCH),
+         train["peak_mem_bytes"] - train["mem_at_reset_bytes"],
+         train["median_step_s_2_to_4"]),
+        (moe, moe_tcfg, ShapeSpec("mixtral-8x7b train_moe", "train",
+                                  TRAIN_SEQ, MOE_TRAIN_BATCH),
+         moe_train["peak_mem_bytes"] - moe_train["mem_at_reset_bytes"],
+         moe_train["median_step_s_2_to_3"]),
+        (olmo, None, prefill, card["peak_bytes"], card["median_s"]))
+    out = []
+    for cfg, tcfg, shape, card_peak, card_s in cells:
+        rec = dryrun.lower_cell(cfg, shape, tcfg=tcfg, spec=spec)
+        r = rec["roofline"]
+        row = {"phase": "dryrun_vs_card", "cell": shape.name,
+               "B": shape.global_batch, "S": shape.seq_len,
+               "predicted_peak_bytes": rec["peak_bytes"],
+               "card_peak_bytes": card_peak,
+               "peak_ratio": rec["peak_bytes"] / card_peak,
+               "flops_by_dtype": rec["flops_by_dtype"],
+               "kernel_calls": {k: v["calls"]
+                                for k, v in rec["kernels"].items()},
+               "model_flops_6NT_or_2NT": rec["model_flops_global"],
+               "counted_over_model_flops": 1.0 / rec["useful_flops_ratio"],
+               "bytes": rec["bytes_per_device"],
+               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+               "dominant": r["dominant"],
+               "step_s_overlapped": r["step_s_overlapped"],
+               "card_step_s": card_s,
+               "share": r["step_s_overlapped"] / card_s}
+        row["ok"] = abs(row["peak_ratio"] - 1.0) <= 0.10 and \
+            row["share"] <= 1.05
+        emit(row)
+        out.append(row)
+    assert all(r["ok"] for r in out), out
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1579,6 +1746,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.hw import H100Spec
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
@@ -1758,6 +1926,12 @@ def main() -> int:
     train = train_olmo(dev)
     train_grad_check(dev)
     moe_train = train_moe(dev)
+
+    # 15. dry-run: the (arch x shape) matrix on meta against the card's
+    # spec, then the counts of the shapes this call ran beside the card's
+    spec = H100Spec.from_device(0)
+    dryrun_matrix(spec)
+    dryrun_vs_card(dev, spec, train, moe_train)
 
     # 13. kernels line, card line, result -------------------------------------
     by_path = {"olmo-1b": olmo["launches"]["flash_attention"],

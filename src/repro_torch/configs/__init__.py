@@ -1,6 +1,7 @@
 """Config registry of the port: own copies of all ten of the reference's
 architectures (dense, moe, hybrid, ssm, vlm and audio), each with
-``CONFIG`` (full width) and ``SMOKE`` exactly as in ``repro.configs``."""
+``CONFIG`` (full width) and ``SMOKE`` exactly as in ``repro.configs``, and
+of the (arch x shape) cell matrix (``shapes``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from repro_torch.configs import (codeqwen1_5_7b, granite_3_8b, llama3_405b,
                                 llama4_scout_17b_a16e, llama_3_2_vision_11b,
                                 mixtral_8x7b, olmo_1b, recurrentgemma_2b,
                                 rwkv6_1_6b, whisper_small)
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, cells, skip_reason
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
@@ -33,4 +35,5 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "get_config", "ModelConfig"]
+__all__ = ["ARCH_IDS", "get_config", "SHAPES", "ShapeSpec", "cells",
+           "skip_reason", "ModelConfig"]

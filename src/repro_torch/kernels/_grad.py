@@ -13,6 +13,8 @@ from collections.abc import Callable, Sequence
 
 import torch
 
+from repro_torch.hw import cost
+
 
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd would record a call on ``tensors``: only then does
@@ -65,6 +67,19 @@ class KernelFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cotangents):
-        return (None, None, None,
-                *vjp(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[3:],
-                     cotangents, **ctx.kw))
+        inputs, need = ctx.saved_tensors, ctx.needs_input_grad[3:]
+
+        def grads():
+            return vjp(ctx.plain, inputs, need, cotangents, **ctx.kw)
+
+        counter = cost.current() if inputs[0].device.type == "meta" else None
+        if counter is None:
+            return (None, None, None, *grads())
+        # the dry-run counts the recomputed VJP once for each shape
+        key = (ctx.plain, tuple(sorted(ctx.kw.items())), need,
+               *(_layout(t) for t in (*inputs, *cotangents)))
+        return (None, None, None, *counter.repeat(key, grads))
+
+
+def _layout(t: torch.Tensor | None):
+    return None if t is None else (tuple(t.shape), t.stride(), t.dtype)

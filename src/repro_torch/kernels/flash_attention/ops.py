@@ -2,9 +2,10 @@
 
 A CUDA tensor goes to the hand-written kernel
 (``csrc/flash_attention.cu``) or to an exception; a CPU tensor goes to the
-plain version (``ref.attention_plain``).  ``flash_attention.launches``
-counts the kernel launches, so a run can show its path went through the
-kernel.
+plain version (``ref.attention_plain``); a meta tensor under a
+``hw.cost.CostCounter`` gets meta outputs and adds ``cost`` to the count
+(the dry-run), and raises otherwise.  ``flash_attention.launches`` counts
+the kernel launches, so a run can show its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.hw import cost as _cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
@@ -59,8 +61,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {name}'s head dim must be "
                              "contiguous (stride 1)")
         # the bf16 kernel moves rows in 16-byte vectors
+        # (a meta tensor has no address)
         if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+                (not t.is_meta and t.data_ptr() % 16)
+                or any(st % 8 for st in t.stride()[:3])):
             raise ValueError(f"flash_attention: bf16 {name} must be 16-byte "
                              "aligned with strides that are multiples of 8")
 
@@ -74,13 +78,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D in ``HEAD_DIMS``; float32 or bfloat16."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    counted = _cost.counts_meta(q)
+    if q.device.type != "cuda" and not counted:
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     b, s, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if counted:
+        _cost.current().add_kernel("flash_attention", **cost(
+            b, s, h, k.shape[2], d, causal=causal, window=window,
+            dtype=q.dtype))
+        return out
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
@@ -97,3 +107,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def causal_pairs(s: int, window: int | None) -> int:
+    """The (query, key) pairs of a causal self-attention over ``s``
+    positions, each query seeing at most its ``window`` latest keys."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def cost(b: int, s: int, h: int, kh: int, d: int, *, causal: bool = True,
+         window: int | None = None, dtype: torch.dtype = torch.bfloat16
+         ) -> dict:
+    """The least work of one call: 4·D flops (QKᵀ and PV) for each
+    (query, key) pair a head sees, on the tensor cores in bf16 (the fp32
+    kernel is scalar); q, k and v read once and out written once."""
+    pairs = causal_pairs(s, window) if causal else s * s
+    size = torch.finfo(dtype).bits // 8
+    return {"flops": 4.0 * b * h * d * pairs,
+            "bytes": float(size * b * s * d * (2 * h + 2 * kh)),
+            "peak_class": ("bfloat16" if dtype == torch.bfloat16
+                           else "float32")}

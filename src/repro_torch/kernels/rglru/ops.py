@@ -2,7 +2,9 @@
 
 A CUDA tensor goes to the hand-written kernel (``csrc/rglru.cu``) or to
 an exception; a CPU tensor goes to the plain version
-(``ref.rglru_plain``).  ``rglru.launches`` counts the kernel launches, so
+(``ref.rglru_plain``); a meta tensor under a ``hw.cost.CostCounter`` gets
+meta outputs and adds ``cost`` to the count (the dry-run), and raises
+otherwise.  ``rglru.launches`` counts the kernel launches, so
 a run can show its path went through the kernel.  The kernel is
 forward-only; where autograd needs the gradient, ``_grad.KernelFn``'s
 backward recomputes ``rglru_plain`` on the saved inputs and returns its
@@ -16,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch.hw import cost as _cost
 from repro_torch.kernels import _build
 from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.rglru.ref import rglru_plain
@@ -55,12 +58,37 @@ def rglru(a: torch.Tensor, x: torch.Tensor
     dtype, h_last (B,R) float32), the scan from h = 0."""
     if a.device.type == "cpu":
         return rglru_plain(a, x)
-    if a.device.type != "cuda":
+    if a.device.type == "cuda":
+        launch = _launch
+    elif _cost.counts_meta(a):
+        launch = _counted
+    else:
         raise ValueError(f"rglru: no kernel for device {a.device}")
     _check(a, x)
     if needs_grad(a, x):
-        return KernelFn.apply(_launch, rglru_plain, {}, a, x)
-    return _launch(a, x)
+        return KernelFn.apply(launch, rglru_plain, {}, a, x)
+    return launch(a, x)
+
+
+def cost(b: int, s: int, r: int, dtype: torch.dtype = torch.bfloat16
+         ) -> dict:
+    """The least work of one call: 7 fp32 operations an element (a·a,
+    1−, max, sqrt, ·x, a·h, +) outside the tensor cores; a and x read
+    once, h written once, h_last (fp32) written once."""
+    n = b * s * r
+    size = torch.finfo(dtype).bits // 8
+    return {"flops": 7.0 * n, "bytes": float(3 * n * size + b * r * 4),
+            "peak_class": "float32"}
+
+
+def _counted(a: torch.Tensor, x: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's outputs on meta, its cost added to the counter."""
+    b, s, r = a.shape
+    h = torch.empty_like(x)
+    h_last = torch.empty((b, r), dtype=torch.float32, device=x.device)
+    _cost.current().add_kernel("rglru", **cost(b, s, r, x.dtype))
+    return h, h_last
 
 
 def _launch(a: torch.Tensor, x: torch.Tensor

@@ -2,7 +2,9 @@
 
 A CUDA tensor goes to the hand-written kernel (``csrc/wkv6.cu``) or to
 an exception; a CPU tensor goes to the plain version
-(``ref.wkv6_plain``).  ``wkv6.launches`` counts the kernel launches, so a
+(``ref.wkv6_plain``); a meta tensor under a ``hw.cost.CostCounter`` gets
+meta outputs and adds ``cost`` to the count (the dry-run), and raises
+otherwise.  ``wkv6.launches`` counts the kernel launches, so a
 run can show its path went through the kernel.  The kernel is
 forward-only; where autograd needs the gradient, ``_grad.KernelFn``'s
 backward recomputes ``wkv6_plain`` (with the same floor, so the clip's zero
@@ -17,6 +19,7 @@ import functools
 
 import torch
 
+from repro_torch.hw import cost as _cost
 from repro_torch.kernels import _build
 from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.rwkv6.ref import wkv6_plain
@@ -64,7 +67,7 @@ def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "the head dim contiguous (stride 1)")
     # the kernel stages rows of D elements by 16-byte asynchronous copies
     size = r.element_size()
-    if any(t.data_ptr() % 16 for t in (r, k, v, w)) or any(
+    if any(not t.is_meta and t.data_ptr() % 16 for t in (r, k, v, w)) or any(
             r.stride(i) * size % 16 for i in range(3) if r.shape[i] > 1):
         raise ValueError("wkv6: r, k, v and w must start on 16 bytes, and "
                          "their batch, head and step strides be multiples "
@@ -94,15 +97,42 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``out`` has r's strides where r is dense (``torch.empty_like``)."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, floor=floor)
-    if r.device.type != "cuda":
+    if r.device.type == "cuda":
+        forward = _forward
+    elif _cost.counts_meta(r):
+        forward = _counted
+    else:
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     _check(r, k, v, w, u)
     if not 0.0 <= floor <= 1.0:
         raise ValueError(f"wkv6: floor {floor} outside [0, 1]")
     if needs_grad(r, k, v, w, u):
-        return KernelFn.apply(_forward, wkv6_plain, {"floor": floor},
+        return KernelFn.apply(forward, wkv6_plain, {"floor": floor},
                               r, k, v, w, u)
-    return _forward(r, k, v, w, u, floor=floor)
+    return forward(r, k, v, w, u, floor=floor)
+
+
+def cost(b: int, h: int, s: int, d: int,
+         dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The least work of one call, per (b, h, t): k vᵀ (D²), the decayed
+    state (2 D²), rᵀ S (2 D²) and the bonus (r·(u∘k)) v (4 D), fp32
+    outside the tensor cores; r, k, v, w read once and out written once,
+    u (fp32) read and the final state (fp32) written."""
+    n = b * h * s
+    size = torch.finfo(dtype).bits // 8
+    return {"flops": n * (5.0 * d * d + 4.0 * d),
+            "bytes": float(5 * n * d * size + h * d * 4 + b * h * d * d * 4),
+            "peak_class": "float32"}
+
+
+def _counted(r, k, v, w, u, *, floor: float
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's outputs on meta, its cost added to the counter."""
+    b, h, s, d = r.shape
+    out = torch.empty_like(r)
+    state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    _cost.current().add_kernel("wkv6", **cost(b, h, s, d, r.dtype))
+    return out, state
 
 
 def _forward(r, k, v, w, u, *, floor: float

@@ -83,6 +83,12 @@ class ModelConfig:
         return -(-self.vocab // 256) * 256
 
     @property
+    def is_subquadratic(self) -> bool:
+        """Supports 500k-token decode: recurrent state or bounded window."""
+        return (self.family in ("ssm", "hybrid")
+                or self.window is not None)
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 

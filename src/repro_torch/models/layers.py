@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.hw.cost import counts_meta
 from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru import rglru, rglru_plain
@@ -166,10 +167,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On CUDA, self-attention (Sq == Sk, ``q_offset`` 0, no softcap) runs
     the flash attention kernel, through ``KernelFn`` (backward: the dense
-    math's) where autograd needs its gradient.  Everything else runs the dense math, in q-chunks
+    math's) where autograd needs its gradient; so does a meta tensor under
+    a ``hw.cost.CostCounter``, so that the dry-run counts the card's path.  Everything else runs the dense math, in q-chunks
     above ``_CHUNK_THRESHOLD`` score elements."""
     sq, sk = q.shape[1], k.shape[1]
-    if q.is_cuda and sq == sk and q_offset == 0 and not softcap:
+    if (q.is_cuda or counts_meta(q)) and sq == sk and q_offset == 0 \
+            and not softcap:
         if needs_grad(q, k, v):
             return KernelFn.apply(flash_attention, _attention_torch,
                                   {"causal": causal, "window": window},

@@ -37,6 +37,24 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     return module_for(cfg).init(cfg, generator, dev)
 
 
+def abstract(cfg: ModelConfig) -> dict:
+    """The params' tree on the ``meta`` device: shapes and dtypes."""
+    return init(cfg, device="meta")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: str | torch.device = "cuda") -> dict:
+    """A zero decode cache for ``batch`` rows of up to ``max_len``
+    positions (its "len" 0)."""
+    return module_for(cfg).init_cache(cfg, batch, max_len,
+                                      resolve_device(device))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """``init_cache``'s tree on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
 def needs_frontend(cfg: ModelConfig) -> bool:
     """Whether the family takes frontend (modality) tokens: vlm and
     audio."""

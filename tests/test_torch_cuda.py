@@ -292,6 +292,9 @@ def test_kernel_gradients_match_cpu_plain(cuda_device, kernel):
     ins = _kernel_inputs(name, gen)
     # copies taken as each is made: a failure says which changed since
     made = {"ins": [t.clone() for t in ins]}
+    # the plain RG-LRU's elementwise stages, computed first and kept: a
+    # failure names the first stage that a repeat does not reproduce
+    stages = _rglru_stages(*ins) if name == "rglru" else None
     outs = _kernel_call(name, [t.requires_grad_(True) for t in ins])
     cots = [torch.randn(o.shape, generator=gen) for o in outs]
     made["cots"] = [c.clone() for c in cots]
@@ -299,6 +302,9 @@ def test_kernel_gradients_match_cpu_plain(cuda_device, kernel):
     made["want"] = [w.clone() for w in want]
     # the same CPU computation once more, before the card is touched
     repeat_outs, repeat = _cpu_grads(name, made["ins"], made["cots"])
+    if stages is not None:
+        differs = _first_stage_differing(stages, _rglru_stages(*made["ins"]))
+        assert differs is None, differs
     dev_ins = [t.detach().to(cuda_device).requires_grad_(True) for t in ins]
     before = kernel.launches
     dev_outs = _kernel_call(name, dev_ins)
@@ -327,6 +333,32 @@ def test_kernel_gradients_match_cpu_plain(cuda_device, kernel):
                 "again": _gradients_again(name, ins, cots, want,
                                           cuda_device)}))
         assert _rel_gap(g, w) <= GRAD_RTOL, (name, i, _rel_gap(g, w))
+
+
+def _rglru_stages(a, x):
+    """``rglru_plain``'s elementwise stages before its scan, in its order:
+    a², 1 - a², the clamp at 1e-12, the sqrt and the product with x."""
+    af = a.detach().float()
+    aa = af * af
+    one_minus = 1.0 - aa
+    clamped = torch.clamp(one_minus, min=1e-12)
+    root = torch.sqrt(clamped)
+    return {"a*a": aa, "1-a*a": one_minus, "clamp": clamped, "sqrt": root,
+            "sqrt*x": root * x.detach().float()}
+
+
+def _first_stage_differing(first: dict, again: dict):
+    """None if every stage equals its repeat bit for bit; else the first
+    stage that does not, where it differs, and whether its input did."""
+    names = list(first)
+    for i, stage in enumerate(names):
+        where = _changed(first[stage], again[stage])
+        if where is not None:
+            return {"stage": stage, "differs_at": where,
+                    "input_differs_at": (_changed(first[names[i - 1]],
+                                                  again[names[i - 1]])
+                                         if i else None)}
+    return None
 
 
 def _cpu_grads(name, ins, cots):
