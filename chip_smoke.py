@@ -53,6 +53,31 @@ Phases, one JSON line each:
   5. slice   olmo-1b at full width (random weights from seed 0, bf16
              activations) served by ``ServeEngine``: 8 requests of 64-512
              prompt tokens on 4 slots, 16 new tokens each;
+  5b. runtime  the port's copy of the paper's runtime (``repro_torch.core``).
+             ``runtime_sim``: ``examples/quickstart.py``'s flow for
+             resnet50, dcgan and inception_v3 (the recommendation at 1 x 68
+             threads, the manual best uniform configuration, the runtime's
+             step, speedup, mean co-run and profiling steps), all times
+             the simulated KNL's (``SimMachine``), not the card's.
+             ``runtime_exec``: four independent olmo-1b prefills at full
+             width (bf16, weights from seed 0; one request a chain of 512,
+             384, 256 and 128 tokens) as one graph of 136 ops, each chain
+             the ops of ``wave_op_graph`` for its request with payloads
+             that call the model's own functions
+             (``serving.prefill_payload_graph``); planned on the sim by
+             ``ConcurrencyRuntime`` with EWMA feedback, run by
+             ``RealGraphExecutor`` at 1 and 4 workers (a CUDA stream each,
+             timed by CUDA events): wall time (and the witness's), summed
+             device ms, the most
+             ops whose event intervals overlap, flash's launches (64) and
+             the streams it ran on (``torch.profiler``; at least 2 at 4
+             workers), the plan store's observations (136), device ms by
+             op class beside the sim's prediction, and the logits against
+             the witness (the same payloads in topological order on the
+             caller's stream): bit for bit, or else within the bf16 rule
+             with the unequal elements counted.  Then one fp32 run at 4
+             workers within 1e-3 of the largest |logit| of
+             ``transformer.prefill``;
   6. slice   recurrentgemma-2b at full width, the same way: 8 requests on
              4 slots, 16 new tokens each, ``max_len`` 4096, a first wave
              of 64-512 prompt tokens and a second of 1500-2600 (one above
@@ -157,7 +182,8 @@ of kernels (``KERNEL_GROUPS``); and holds a wave's prefill logits (and,
 for rwkv6-1.6b, its ``tm_state``; for rwkv6-1.6b and granite-3-8b also
 each kernel call on its own inputs) against the same prefill through the
 kernels' plain versions, in fp32 and in bf16.  Then the
-``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b and
+``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b
+runtime's and the olmo-1b and
 mixtral-8x7b train paths' included; each kernel's largest error against
 its plain version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
 largest ratio of the error to that bound; flash's times also at D=256, at
@@ -1736,6 +1762,219 @@ def dryrun_vs_card(dev, spec, train: dict, moe_train: dict) -> list:
     return out
 
 
+# the runtime phase: four independent olmo-1b prefills (one request a chain,
+# distinct lengths, so distinct size keys) through RealGraphExecutor at
+# 1 and 4 workers
+RUNTIME_PROMPTS = (512, 384, 256, 128)
+RUNTIME_WORKERS = (1, 4)
+RUNTIME_SIM_MODELS = ("resnet50", "dcgan", "inception_v3")
+
+
+def runtime_sim() -> dict:
+    """``examples/quickstart.py``'s flow through the port's copy of the
+    paper's runtime: the recommendation (1 x 68 threads), the manual best
+    uniform configuration and the runtime's Strategies 1-4 per paper
+    graph.  Every time here is the simulated KNL's (``SimMachine``), not
+    the card's."""
+    from repro_torch.core import (ConcurrencyRuntime, SimMachine,
+                                  build_paper_graph, manual_best_schedule,
+                                  uniform_schedule)
+
+    machine = SimMachine()
+    models = {}
+    for model in RUNTIME_SIM_MODELS:
+        graph = build_paper_graph(model)
+        rt = ConcurrencyRuntime()
+        summary = rt.train(graph, total_steps=10_000)
+        result = rt.execute_step(graph)
+        manual, best = manual_best_schedule(graph, machine)
+        rec = uniform_schedule(graph, machine, intra=68, inter=1)
+        models[model] = {
+            "ops": graph.n_ops, "recommendation_ms": rec.makespan * 1e3,
+            "manual_best_ms": manual.makespan * 1e3,
+            "manual_best_inter_intra": list(best),
+            "runtime_ms": summary.step_time * 1e3,
+            "speedup": summary.speedup,
+            "mean_corun": result.mean_corunning,
+            "profiling_steps": summary.profiling_steps,
+            "profiling_overhead": summary.profiling_overhead}
+        assert 0 < summary.step_time <= rec.makespan, (model, models[model])
+    out = {"phase": "runtime_sim",
+           "clock": f"SimMachine {machine.spec.name} (simulated, not the "
+                    "card)", "models": models}
+    emit(out)
+    return out
+
+
+def run_inline(graph) -> dict:
+    """The witness: every payload in ``graph.topo_order()`` on the
+    caller's stream, with no executor."""
+    vals = {}
+    for u in graph.topo_order():
+        op = graph.ops[u]
+        vals[u] = op.payload({d: vals[d] for d in op.deps})
+    return vals
+
+
+def max_overlap(spans: dict) -> int:
+    """The most (start, end) intervals open at one instant."""
+    edges = sorted([(s, 1) for s, _ in spans.values()]
+                   + [(e, -1) for _, e in spans.values()])
+    most = open_ = 0
+    for _, step in edges:
+        open_ += step
+        most = max(most, open_)
+    return most
+
+
+def flash_streams(graph, workers: int) -> int:
+    """The distinct CUDA streams flash ran on in one more run of ``graph``
+    at ``workers``, from a ``torch.profiler`` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import RealGraphExecutor
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        RealGraphExecutor(max_workers=workers).run(graph)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")
+           and KERNEL_SYMBOLS["flash_attention"] in e.name()]
+    assert len(evs) == flash_attention.launches, \
+        (len(evs), flash_attention.launches)
+    return len({e.device_resource_id() for e in evs})
+
+
+def runtime_exec(dev) -> list:
+    """Four independent olmo-1b prefills at full width as one graph of
+    136 ops (``serving.prefill_payload_graph``: each chain the ops of
+    ``wave_op_graph`` for its one request), planned on the sim by
+    ``ConcurrencyRuntime`` with EWMA feedback and run on the card by
+    ``RealGraphExecutor`` at 1 and 4 workers, one stream each.  Each
+    request's bf16 logits must equal the witness's (the same payloads in
+    topological order on the caller's stream) bit for bit, or else be
+    held to the bf16 rule and the unequal elements counted; every op
+    observed once in the plan store, flash launched 64 times, on two
+    streams or more at 4 workers; and one fp32 run at 4 workers within
+    1e-3 of the largest |logit| of ``transformer.prefill``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ConcurrencyRuntime, RealGraphExecutor,
+                                  RuntimeConfig, StrategyConfig)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer, zoo
+    from repro_torch.serving import prefill_payload_graph
+
+    cfg = get_config("olmo-1b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in RUNTIME_PROMPTS]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = zoo.init(cfg, gen, device=dev)
+    cast_as_you_go(params, cfg.activation_dtype)
+    graph = prefill_payload_graph(cfg, params, prompts)
+    n_flash = len(prompts) * cfg.n_layers
+    assert graph.n_ops == len(prompts) * (2 * cfg.n_layers + 2) == 136
+    sinks = [u for u in graph.topo_order() if not graph.consumers(u)]
+
+    def planned():
+        rt = ConcurrencyRuntime(config=RuntimeConfig(
+            strategy=StrategyConfig(feedback="ewma")))
+        rt.profile(graph)
+        return rt
+
+    lines = []
+    with torch.no_grad():
+        # warm-up (cuBLAS on fresh streams), then the witness on the
+        # caller's stream, timed to a sync
+        RealGraphExecutor(max_workers=max(RUNTIME_WORKERS)).run(graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        witness = run_inline(graph)
+        torch.cuda.synchronize()
+        witness_s = time.perf_counter() - t0
+        for w in RUNTIME_WORKERS:
+            rt = planned()
+            sim_ms = {}
+            for op in graph.ops.values():
+                p = rt.plan.per_instance[op.size_key]
+                sim_ms[op.op_class] = sim_ms.get(op.op_class, 0.0) + \
+                    rt.planstore.predict(op, p.threads, p.variant) * 1e3
+            flash_attention.launches = 0
+            ex = RealGraphExecutor(max_workers=w, device="cuda")
+            results, timings, wall = ex.run(graph, store=rt.planstore,
+                                            plan=rt.plan)
+            launches = flash_attention.launches
+            observed_ms = {}
+            for u, op in graph.ops.items():
+                observed_ms[op.op_class] = observed_ms.get(
+                    op.op_class, 0.0) + timings[u] * 1e3
+            unequal, errs = [], []
+            for u in sinks:
+                out, ref = results[u].float(), witness[u].float()
+                unequal.append(int((out != ref).sum()))
+                errs.append(float((out - ref).abs().max()))
+            largest = max(float(witness[u].float().abs().max())
+                          for u in sinks)
+            line = {"phase": "runtime_exec", "workers": w,
+                    "dtype": "bfloat16", "ops": graph.n_ops,
+                    "wall_s": wall, "witness_wall_s": witness_s,
+                    "device_ms_sum": sum(timings.values()) * 1e3,
+                    "max_ops_overlapping": max_overlap(ex.spans),
+                    "flash_launches": launches,
+                    "flash_streams": flash_streams(graph, w),
+                    "observed": rt.planstore.corrections.observed,
+                    "device_ms_by_class": observed_ms,
+                    "sim_predicted_ms_by_class": sim_ms,
+                    "sim_clock": "SimMachine knl_7250 (simulated)",
+                    "logits_equal_witness": [n == 0 for n in unequal],
+                    "unequal_elements": unequal,
+                    "max_abs_err_vs_witness": max(errs),
+                    "tol": LOGIT_RTOL["bfloat16"] * largest}
+            emit(line)
+            lines.append(line)
+            assert launches == n_flash, line
+            assert line["observed"] == graph.n_ops, line
+            assert max(errs) <= line["tol"], line
+            if w > 1:
+                assert line["flash_streams"] >= 2, line
+    del params, graph, witness, results
+    torch.cuda.empty_cache()
+
+    # fp32: the executor's logits against transformer.prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = zoo.init(cfg32, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    graph32 = prefill_payload_graph(cfg32, params32, prompts)
+    w = max(RUNTIME_WORKERS)
+    with torch.no_grad():
+        flash_attention.launches = 0
+        results, timings, wall = RealGraphExecutor(max_workers=w).run(
+            graph32)
+        launches = flash_attention.launches
+        errs, largest = [], 0.0
+        for u, p in zip(sinks, prompts):
+            tokens = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
+            ref = transformer.prefill(cfg32, params32, tokens, len(p))[0]
+            errs.append(float((results[u] - ref).abs().max()))
+            largest = max(largest, float(ref.abs().max()))
+    line = {"phase": "runtime_exec", "workers": w, "dtype": "float32",
+            "wall_s": wall, "device_ms_sum": sum(timings.values()) * 1e3,
+            "flash_launches": launches, "max_abs_err_vs_prefill": max(errs),
+            "tol": LOGIT_RTOL["float32"] * largest}
+    emit(line)
+    lines.append(line)
+    assert launches == n_flash and max(errs) <= line["tol"], line
+    del params32, graph32, results
+    torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1819,6 +2058,11 @@ def main() -> int:
                        counters={flash_attention: cfg.n_layers},
                        compare_wave=0,
                        plain_kw={"self_attn": attention_plain})
+
+    # 5b. runtime: the paper's runtime on the sim, then its executor running
+    # olmo-1b prefills on CUDA streams
+    runtime_sim()
+    rt_lines = runtime_exec(dev)
 
     # 6. slice: recurrentgemma-2b at full width ------------------------------
     cfg = get_config("recurrentgemma-2b")
@@ -1940,6 +2184,8 @@ def main() -> int:
                "mixtral-8x7b": mixtral["launches"]["flash_attention"],
                "llama-3.2-vision-11b": vision["launches"]["flash_attention"],
                "whisper-small": whisper["launches"]["flash_attention"],
+               "olmo-1b runtime": sum(line["flash_launches"]
+                                      for line in rt_lines),
                "olmo-1b train": train["flash_launches"],
                "mixtral-8x7b train": moe_train["flash_launches"]}
     fa["launches"] = sum(by_path.values())

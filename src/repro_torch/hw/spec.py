@@ -7,8 +7,10 @@ name, memory size and SM count can be read from the card
 because one H100 step mixes classes 15 times apart in rate: bf16 on the
 tensor cores, fp32 GEMMs (TF32 on the tensor cores only where
 ``torch.backends.cuda.matmul.allow_tf32`` is set) and fp32 outside them.
-``KnlLikeSpec`` and ``ClusterSpec`` belong to the scheduling stack, which
-the port does not carry yet.
+``KnlLikeSpec`` (a copy of the reference's) models the paper's Knights
+Landing socket for the scheduling stack's cost oracle
+(``core.simmachine``); it is never used for the card's roofline.
+``ClusterSpec`` comes with the port's cluster layer.
 """
 
 from __future__ import annotations
@@ -76,6 +78,97 @@ class H100Spec:
 
 
 H100 = H100Spec()
+
+
+@dataclasses.dataclass(frozen=True)
+class KnlLikeSpec:
+    """Machine model for the paper's KNL socket (Xeon Phi 7250).
+
+    Only what the scheduling reproduction needs: core/tile/HW-thread
+    topology and enough bandwidth/latency structure for a convex
+    time-vs-threads curve (the paper's Fig. 1 / Observation 1).
+    """
+
+    name: str = "knl_7250"
+    cores: int = 68
+    tiles: int = 34                       # 2 cores per tile share 1MB L2
+    quadrants: int = 4                    # tiles group into mesh quadrants,
+                                          # each owning 2 of the 8 MCDRAM
+                                          # devices (KNL quadrant clustering)
+    hw_threads_per_core: int = 4
+    l2_bytes_per_tile: int = 1 * 1024**2
+    mcdram_bandwidth: float = 450e9       # B/s (cache mode, ~STREAM)
+    # quadrant-contained traffic skips the cross-mesh directory hop, so a
+    # launch whose threads AND streams stay in one quadrant recovers the
+    # bandwidth that all-to-all interleaving wastes on co-run conflicts —
+    # calibrated to the paper's Table III, where core partitioning buys
+    # +38% co-run throughput where hyper-threading buys +3%
+    quadrant_local_boost: float = 1.38
+    # a launch straddling INTO a quadrant that other ops occupy pays the
+    # cross-quadrant contention premium per contested quadrant
+    cross_quadrant_penalty: float = 0.85
+    core_flops: float = 41.6e9            # 2x AVX-512 FMA @ ~1.3GHz
+    thread_spawn_us: float = 4.0          # per-op thread wake/sync overhead
+    sync_serialization: float = 0.005     # per-thread serialized sync share
+    chunk_elems: int = 30000              # elems per independent work chunk:
+                                          # an op with E elems exposes at most
+                                          # ceil(E/chunk_elems) useful threads
+                                          # (MKL-DNN loop-blocking structure)
+    hyper_thread_efficiency: float = 0.55 # 2nd HW thread relative throughput
+    restart_waste: float = 0.30           # fraction of a preempted op's
+                                          # partial core-seconds charged as
+                                          # waste: checkpoint-free preemption
+                                          # discards the partial result, but
+                                          # the fair-share ledger should not
+                                          # bill the victim full price for
+                                          # work the SCHEDULER threw away
+
+    @property
+    def logical_cpus(self) -> int:
+        return self.cores * self.hw_threads_per_core
+
+    # ---- topology: cores -> shared-L2 tiles -> quadrants ---------------
+    # Core ids are 0..cores-1; tile t owns the shared-L2 pair (2t, 2t+1).
+    # 34 tiles do not divide evenly by 4: quadrants get 9/9/8/8 tiles
+    # (18/18/16/16 cores), matching the asymmetric real-chip floorplan.
+
+    def tile_cores(self, tile: int) -> tuple[int, int]:
+        """The shared-L2 core pair of one tile (cache-sharing affinity
+        places both threads of a pair here — paper §III-B)."""
+        return (2 * tile, 2 * tile + 1)
+
+    @property
+    def quadrant_tile_counts(self) -> tuple[int, ...]:
+        base, extra = divmod(self.tiles, self.quadrants)
+        return tuple(base + (1 if q < extra else 0)
+                     for q in range(self.quadrants))
+
+    def quadrant_tiles(self, quadrant: int) -> range:
+        counts = self.quadrant_tile_counts
+        start = sum(counts[:quadrant])
+        return range(start, start + counts[quadrant])
+
+    def quadrant_cores(self, quadrant: int) -> tuple[int, ...]:
+        return tuple(c for t in self.quadrant_tiles(quadrant)
+                     for c in self.tile_cores(t))
+
+    def quadrant_of_core(self, core: int) -> int:
+        tile = core // 2
+        counts = self.quadrant_tile_counts
+        start = 0
+        for q, n in enumerate(counts):
+            if tile < start + n:
+                return q
+            start += n
+        raise ValueError(f"core {core} outside the {self.cores}-core socket")
+
+    @property
+    def quadrant_bandwidth(self) -> float:
+        """Each quadrant's slice of MCDRAM (2 of the 8 devices)."""
+        return self.mcdram_bandwidth / self.quadrants
+
+
+KNL = KnlLikeSpec()
 
 
 def matmul_class(dtype: torch.dtype) -> str:

@@ -16,17 +16,20 @@ Beside each library, ``<lib>.log`` keeps what nvcc printed: ``ptxas``'s
 registers, spills and warnings for every kernel.
 Sources that need building are compiled in parallel, one ``nvcc`` each.  A
 missing ``nvcc``, a failed build or a failed load raises: there is no
-fall-back.
+fall-back.  Building and loading are safe across threads (the executor's
+workers may reach one kernel first together): one lock serialises them,
+so a library is built and loaded once, and each build writes to a
+temporary file named by its process and thread.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -35,6 +38,9 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 SHARED_INCLUDE = KERNELS_DIR / "csrc"   # headers every kernel may include
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCK = threading.Lock()           # held by every build and every load
+_LOADED: dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> dict[str, Path]:
@@ -78,6 +84,11 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
     one ``nvcc`` per source, all started together.  Returns the wall
     seconds of each build that ran; raises with nvcc's output if any
     failed."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: list[str] | None) -> dict[str, float]:
     srcs = sources()
     todo = {n: srcs[n] for n in (names or srcs)
             if not _lib_path(srcs[n]).exists()}
@@ -90,7 +101,8 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
     try:
         for name, src in todo.items():
             lib = _lib_path(src)
-            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
+            tmp = lib.with_name(
+                f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(SHARED_INCLUDE), "-o",
                    str(tmp), str(src)]
             procs[name] = (subprocess.Popen(
@@ -115,11 +127,24 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
     return seconds
 
 
-@functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    src = sources().get(name)
-    if src is None:
-        raise KeyError(f"no kernel source named {name!r} under {KERNELS_DIR}")
-    build_all([name])
-    return ctypes.CDLL(str(_lib_path(src)))
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LOADED:
+            src = sources().get(name)
+            if src is None:
+                raise KeyError(f"no kernel source named {name!r} under "
+                               f"{KERNELS_DIR}")
+            _build_locked([name])
+            _LOADED[name] = ctypes.CDLL(str(_lib_path(src)))
+        return _LOADED[name]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; safe across threads (``+=`` on an
+    attribute is not atomic)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -102,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -106,7 +106,7 @@ def _launch(a: torch.Tensor, x: torch.Tensor
     if err:
         raise RuntimeError("rglru launch failed: "
                            + lib.repro_rglru_error_string(err).decode())
-    rglru.launches += 1
+    _build.count_launch(rglru)
     return h, h_last
 
 

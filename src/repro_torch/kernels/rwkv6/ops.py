@@ -140,7 +140,7 @@ def _forward(r, k, v, w, u, *, floor: float
     """One counted launch, in the geometry ``geometry`` picks."""
     b, h, _, d = r.shape
     out, state = launch(r, k, v, w, u, floor=floor, geom=geometry(b, h, d))
-    wkv6.launches += 1
+    _build.count_launch(wkv6)
     return out, state
 
 

@@ -106,12 +106,22 @@ def _mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor
     return L.apply_mlp(cfg.act, lp, h), None
 
 
-def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
-           sin: torch.Tensor, self_attn: L.SelfAttention
-           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                      torch.Tensor | None]:
-    """One transformer block. x: (B,S,D). Returns (x', k, v, aux), aux
-    None in a dense block."""
+def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> (x (B,S,D) in the activation dtype, RoPE cos, sin)."""
+    x = params["embed"]["table"][tokens].to(cfg.activation_dtype)
+    cos, sin = L.rope_angles(torch.arange(tokens.shape[1],
+                                          device=tokens.device),
+                             cfg.hd, cfg.rope_theta)
+    return x, cos, sin
+
+
+def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                   cos: torch.Tensor, sin: torch.Tensor,
+                   self_attn: L.SelfAttention
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A block's first half: self-attention and its residual.  x: (B,S,D).
+    Returns (x', k, v)."""
     dt = x.dtype
     b, s, _ = x.shape
     hd = cfg.hd
@@ -122,9 +132,34 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
-    x = x + o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
+    return x + o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt), k, v
+
+
+def mlp_half(cfg: ModelConfig, lp: dict, x: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A block's second half: the MLP (or MoE block) and its residual.
+    Returns (x', aux), aux None in a dense block."""
     m, aux = _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm"]))
-    return x + m, k, v, aux
+    return x + m, aux
+
+
+def last_logits(cfg: ModelConfig, params: dict, x: torch.Tensor
+                ) -> torch.Tensor:
+    """The final norm and the logits of the last position: (B,S,D) ->
+    (B,V), as ``prefill`` returns them."""
+    x = _norm(cfg, x, params["final_norm"])[:, -1:]
+    return unembed(cfg, params, x)[:, -1]
+
+
+def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor, self_attn: L.SelfAttention
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor | None]:
+    """One transformer block. x: (B,S,D). Returns (x', k, v, aux), aux
+    None in a dense block."""
+    x, k, v = attention_half(cfg, lp, x, cos, sin, self_attn)
+    x, aux = mlp_half(cfg, lp, x)
+    return x, k, v, aux
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
@@ -133,12 +168,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss[, kv]).
 
     ``last_only``: unembed only the final position (prefill path)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    dt = cfg.activation_dtype
-    x = params["embed"]["table"][tokens].to(dt)
-    cos, sin = L.rope_angles(torch.arange(s, device=tokens.device), cfg.hd,
-                             cfg.rope_theta)
+    x, cos, sin = embed(cfg, params, batch["tokens"])
     attn = self_attn or L.attention
     layer = L.maybe_remat(_layer, cfg.remat)
     ks, vs, auxes = [], [], []

@@ -1,4 +1,5 @@
 from repro_torch.serving.engine import (Request, ServeEngine, WaveStats,
-                                        wave_op_graph)
+                                        prefill_payload_graph, wave_op_graph)
 
-__all__ = ["ServeEngine", "Request", "WaveStats", "wave_op_graph"]
+__all__ = ["ServeEngine", "Request", "WaveStats", "prefill_payload_graph",
+           "wave_op_graph"]

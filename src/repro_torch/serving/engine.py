@@ -249,3 +249,82 @@ def wave_op_graph(cfg: ModelConfig, wave: list[Request], *,
                      parallel_fraction=0.80,
                      name=f"wave_decode_step/{s}")
     return b.build()
+
+
+def prefill_payload_graph(cfg: ModelConfig, params: dict,
+                          prompts: list[np.ndarray]) -> OpGraph:
+    """Independent prefills as one graph with real payloads, for
+    ``core.RealGraphExecutor``.
+
+    One chain a prompt: the ops of ``wave_op_graph(cfg, [request])`` for
+    a wave of that one request with ``max_new_tokens=1`` (no decode ops),
+    their classes, shapes, flops and bytes unchanged, with payloads that
+    call the model's own functions: ``wave_embed`` the embedding (tokens
+    to the params' device), ``wave_prefill_attn/i`` and
+    ``wave_prefill_mlp/i`` the two halves of layer i
+    (``transformer.attention_half`` through ``layers.attention``, then
+    ``transformer.mlp_half``) and
+    ``wave_unembed`` the final norm and the last position's logits.  A
+    chain's last op returns the (1, V) logits ``transformer.prefill``
+    gives for that prompt.  Dense and MoE families only (the families of
+    ``transformer.py``)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import unstack
+
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"prefill_payload_graph: family {cfg.family!r} "
+                         "is not a transformer.py family")
+    layers = unstack(params["layers"], cfg.n_layers)
+    dev = params["embed"]["table"].device
+
+    def embed(prompt):
+        def run(deps):
+            tokens = torch.as_tensor(prompt, dtype=torch.int64,
+                                     device=dev)[None]
+            return T.embed(cfg, params, tokens)
+        return run
+
+    def attention(li, dep):
+        def run(deps):
+            x, cos, sin = deps[dep]
+            x = T.attention_half(cfg, layers[li], x, cos, sin,
+                                 L.attention)[0]
+            return x, cos, sin
+        return run
+
+    def mlp(li, dep):
+        def run(deps):
+            x, cos, sin = deps[dep]
+            return T.mlp_half(cfg, layers[li], x)[0], cos, sin
+        return run
+
+    def logits(dep):
+        return lambda deps: T.last_logits(cfg, params, deps[dep][0])
+
+    b = GraphBuilder(f"{cfg.arch_id}-prefills")
+    for i, prompt in enumerate(prompts):
+        chain = wave_op_graph(cfg, [Request(rid=i, prompt=prompt,
+                                            max_new_tokens=1)])
+        uids: dict[int, int] = {}
+        for u in chain.topo_order():
+            op = chain.ops[u]
+            deps = [uids[d] for d in op.deps]
+            layer = op.name.partition("/")[2]
+            if op.op_class == "wave_embed":
+                payload = embed(prompt)
+            elif op.op_class == "wave_prefill_attn":
+                payload = attention(int(layer), deps[0])
+            elif op.op_class == "wave_prefill_mlp":
+                payload = mlp(int(layer), deps[0])
+            elif op.op_class == "wave_unembed":
+                payload = logits(deps[0])
+            else:
+                raise ValueError(f"prefill_payload_graph: no payload for "
+                                 f"{op.op_class}")
+            uids[u] = b.add(
+                op.op_class, op.input_shape, flops=op.flops,
+                bytes_moved=op.bytes_moved, working_set=op.working_set,
+                parallel_fraction=op.parallel_fraction, deps=deps,
+                name=f"{op.name}@{i}", payload=payload, tunable=op.tunable)
+    return b.build()
