@@ -77,7 +77,27 @@ Phases, one JSON line each:
              caller's stream): bit for bit, or else within the bf16 rule
              with the unequal elements counted.  Then one fp32 run at 4
              workers within 1e-3 of the largest |logit| of
-             ``transformer.prefill``;
+             ``transformer.prefill``.  Each line reads
+             ``memory_allocated`` just before its executor is built and
+             after its results are dropped, and fails if the second is
+             higher (the executor frees the cuBLAS workspaces of its
+             worker streams).
+             ``service_exec``: the same four prompts as four jobs of the
+             pool daemon (``service.PoolDaemon``, up to 3 jobs active, EWMA
+             feedback, payload feedback, 4 workers on the card), each its
+             request's 34 ops (``prefill_payload_graph``) attached to a
+             ``JobSpec``; beside them a simulated resnet50 training job
+             (no payloads) and a fifth prefill cancelled before any step;
+             then ``drain`` and ``close``.  It fails unless each job's
+             logits equal the witness's bit for bit (else within the bf16
+             rule, the unequal elements counted), flash launched exactly
+             64 times and none of the cancelled job's payloads ran, every
+             payload op of the four jobs was observed once, the job store
+             on disk holds six entries in their final states, and
+             ``memory_allocated`` after ``close`` (results dropped) is no
+             higher than before the daemon was built; the line gives the
+             wall, the sim's makespan (simulated KNL), the summed device
+             ms and the checkpoints written;
   6. slice   recurrentgemma-2b at full width, the same way: 8 requests on
              4 slots, 16 new tokens each, ``max_len`` 4096, a first wave
              of 64-512 prompt tokens and a second of 1500-2600 (one above
@@ -183,7 +203,7 @@ for rwkv6-1.6b, its ``tm_state``; for rwkv6-1.6b and granite-3-8b also
 each kernel call on its own inputs) against the same prefill through the
 kernels' plain versions, in fp32 and in bf16.  Then the
 ``{"kernels": [...]}`` line (flash's launches by path, the olmo-1b
-runtime's and the olmo-1b and
+runtime's and service's and the olmo-1b and
 mixtral-8x7b train paths' included; each kernel's largest error against
 its plain version, its tolerance ``|err| <= atol + rtol * |ref|`` and the
 largest ratio of the error to that bound; flash's times also at D=256, at
@@ -198,6 +218,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1848,7 +1869,27 @@ def flash_streams(graph, workers: int) -> int:
     return len({e.device_resource_id() for e in evs})
 
 
-def runtime_exec(dev) -> list:
+def olmo_runtime_setup(dev) -> tuple:
+    """olmo-1b at full width and depth, bf16, weights from seed 0, and
+    the prompts of ``RUNTIME_PROMPTS``: what ``runtime_exec`` and
+    ``service_exec`` run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = get_config("olmo-1b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in RUNTIME_PROMPTS]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = zoo.init(cfg, gen, device=dev)
+    cast_as_you_go(params, cfg.activation_dtype)
+    return cfg, params, prompts
+
+
+def runtime_exec(dev, setup) -> list:
     """Four independent olmo-1b prefills at full width as one graph of
     136 ops (``serving.prefill_payload_graph``: each chain the ops of
     ``wave_op_graph`` for its one request), planned on the sim by
@@ -1859,24 +1900,18 @@ def runtime_exec(dev) -> list:
     held to the bf16 rule and the unequal elements counted; every op
     observed once in the plan store, flash launched 64 times, on two
     streams or more at 4 workers; and one fp32 run at 4 workers within
-    1e-3 of the largest |logit| of ``transformer.prefill``."""
-    import numpy as np
+    1e-3 of the largest |logit| of ``transformer.prefill``.  Each line
+    reads ``memory_allocated`` before its executor is built and after its
+    results are dropped; the second may not be higher."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import (ConcurrencyRuntime, RealGraphExecutor,
                                   RuntimeConfig, StrategyConfig)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import transformer, zoo
     from repro_torch.serving import prefill_payload_graph
 
-    cfg = get_config("olmo-1b")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
-               for n in RUNTIME_PROMPTS]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = zoo.init(cfg, gen, device=dev)
-    cast_as_you_go(params, cfg.activation_dtype)
+    cfg, params, prompts = setup
     graph = prefill_payload_graph(cfg, params, prompts)
     n_flash = len(prompts) * cfg.n_layers
     assert graph.n_ops == len(prompts) * (2 * cfg.n_layers + 2) == 136
@@ -1890,8 +1925,8 @@ def runtime_exec(dev) -> list:
 
     lines = []
     with torch.no_grad():
-        # warm-up (cuBLAS on fresh streams), then the witness on the
-        # caller's stream, timed to a sync
+        # warm-up (the first GEMMs on the worker streams), then the
+        # witness on the caller's stream, timed to a sync
         RealGraphExecutor(max_workers=max(RUNTIME_WORKERS)).run(graph)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1906,6 +1941,8 @@ def runtime_exec(dev) -> list:
                 sim_ms[op.op_class] = sim_ms.get(op.op_class, 0.0) + \
                     rt.planstore.predict(op, p.threads, p.variant) * 1e3
             flash_attention.launches = 0
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
             ex = RealGraphExecutor(max_workers=w, device="cuda")
             results, timings, wall = ex.run(graph, store=rt.planstore,
                                             plan=rt.plan)
@@ -1921,13 +1958,16 @@ def runtime_exec(dev) -> list:
                 errs.append(float((out - ref).abs().max()))
             largest = max(float(witness[u].float().abs().max())
                           for u in sinks)
+            del results, out, ref
+            streams = flash_streams(graph, w)
+            torch.cuda.synchronize()
             line = {"phase": "runtime_exec", "workers": w,
                     "dtype": "bfloat16", "ops": graph.n_ops,
                     "wall_s": wall, "witness_wall_s": witness_s,
                     "device_ms_sum": sum(timings.values()) * 1e3,
                     "max_ops_overlapping": max_overlap(ex.spans),
                     "flash_launches": launches,
-                    "flash_streams": flash_streams(graph, w),
+                    "flash_streams": streams,
                     "observed": rt.planstore.corrections.observed,
                     "device_ms_by_class": observed_ms,
                     "sim_predicted_ms_by_class": sim_ms,
@@ -1935,15 +1975,18 @@ def runtime_exec(dev) -> list:
                     "logits_equal_witness": [n == 0 for n in unequal],
                     "unequal_elements": unequal,
                     "max_abs_err_vs_witness": max(errs),
-                    "tol": LOGIT_RTOL["bfloat16"] * largest}
+                    "tol": LOGIT_RTOL["bfloat16"] * largest,
+                    "mem_allocated_before": mem_before,
+                    "mem_allocated_after": torch.cuda.memory_allocated()}
             emit(line)
             lines.append(line)
             assert launches == n_flash, line
+            assert line["mem_allocated_after"] <= mem_before, line
             assert line["observed"] == graph.n_ops, line
             assert max(errs) <= line["tol"], line
             if w > 1:
                 assert line["flash_streams"] >= 2, line
-    del params, graph, witness, results
+    del graph, witness
     torch.cuda.empty_cache()
 
     # fp32: the executor's logits against transformer.prefill
@@ -1953,26 +1996,174 @@ def runtime_exec(dev) -> list:
     graph32 = prefill_payload_graph(cfg32, params32, prompts)
     w = max(RUNTIME_WORKERS)
     with torch.no_grad():
+        # the references first: their GEMMs on the caller's stream take
+        # its cuBLAS workspace before the executor's run is read
+        refs = [transformer.prefill(cfg32, params32, torch.as_tensor(
+            p, dtype=torch.int64, device=dev)[None], len(p))[0]
+            for p in prompts]
         flash_attention.launches = 0
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
         results, timings, wall = RealGraphExecutor(max_workers=w).run(
             graph32)
         launches = flash_attention.launches
-        errs, largest = [], 0.0
-        for u, p in zip(sinks, prompts):
-            tokens = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
-            ref = transformer.prefill(cfg32, params32, tokens, len(p))[0]
-            errs.append(float((results[u] - ref).abs().max()))
-            largest = max(largest, float(ref.abs().max()))
+        errs = [float((results[u] - ref).abs().max())
+                for u, ref in zip(sinks, refs)]
+        largest = max(float(ref.abs().max()) for ref in refs)
+        del results
+        torch.cuda.synchronize()
     line = {"phase": "runtime_exec", "workers": w, "dtype": "float32",
             "wall_s": wall, "device_ms_sum": sum(timings.values()) * 1e3,
             "flash_launches": launches, "max_abs_err_vs_prefill": max(errs),
-            "tol": LOGIT_RTOL["float32"] * largest}
+            "tol": LOGIT_RTOL["float32"] * largest,
+            "mem_allocated_before": mem_before,
+            "mem_allocated_after": torch.cuda.memory_allocated()}
     emit(line)
     lines.append(line)
     assert launches == n_flash and max(errs) <= line["tol"], line
-    del params32, graph32, results
+    assert line["mem_allocated_after"] <= mem_before, line
+    del params32, graph32, refs
     torch.cuda.empty_cache()
     return lines
+
+
+def service_exec(dev, setup) -> dict:
+    """The olmo-1b prefills of ``runtime_exec`` served by the pool daemon:
+    one job a request (its 34 ops from ``prefill_payload_graph``, attached
+    to a ``JobSpec``), a simulated resnet50 training job beside them, and
+    a fifth prefill cancelled before any step.  The daemon's persistent
+    executor runs the payloads on the card at 4 workers as the sim
+    launches them; with payload feedback each finished payload's device
+    time reaches its job's plan store.  See the module docstring for what
+    fails the phase."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import OpGraph, StrategyConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.multitenant import PoolConfig
+    from repro_torch.obs import FAM_SERVICE, RecordingSink
+    from repro_torch.serving import prefill_payload_graph
+    from repro_torch.service import (ATTACHED_GRAPH, JobSpec, PoolDaemon,
+                                     load_store)
+    from repro_torch.service import daemon as daemon_mod
+
+    cfg, params, prompts = setup
+    graphs = [prefill_payload_graph(cfg, params, [p]) for p in prompts]
+    per_job = 2 * cfg.n_layers + 2
+    assert all(g.n_ops == per_job == 34 for g in graphs)
+    sink_of = [next(u for u in g.topo_order() if not g.consumers(u))
+               for g in graphs]
+    # the fifth request, to be cancelled: its payloads count their runs
+    ran = []
+
+    def counted(op):
+        def run(deps):
+            ran.append(op.op_class)
+            return op.payload(deps)
+        return dataclasses.replace(op, payload=run)
+
+    extra = prefill_payload_graph(cfg, params, [prompts[0][:100]])
+    extra = OpGraph(extra.name, {u: counted(op)
+                                 for u, op in extra.ops.items()})
+    observed = []
+    real_report = daemon_mod.report_payload_observation
+
+    def report(store, plan, op, dt):
+        observed.append((id(store), op.uid))
+        real_report(store, plan, op, dt)
+
+    with torch.no_grad():
+        witness = []
+        for g, u in zip(graphs, sink_of):
+            witness.append(run_inline(g)[u])
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        mem_before = torch.cuda.memory_allocated()
+        sink = RecordingSink()
+        daemon_mod.report_payload_observation = report
+        try:
+            with tempfile.TemporaryDirectory() as td:
+                t0 = time.perf_counter()
+                daemon = PoolDaemon(
+                    td, config=PoolConfig(max_active=3,
+                                          strategy=StrategyConfig(
+                                              feedback="ewma", sink=sink)),
+                    execute_payloads=True, max_workers=4,
+                    payload_feedback=True, device="cuda")
+                ids = [daemon.submit(JobSpec(
+                    workload=ATTACHED_GRAPH,
+                    name=f"olmo-1b-prefill-{len(p)}"), graph=g)
+                    for p, g in zip(prompts, graphs)]
+                daemon.submit(JobSpec(workload="resnet50",
+                                      name="resnet50-train"))
+                cancelled = daemon.submit(
+                    JobSpec(workload=ATTACHED_GRAPH,
+                            name="olmo-1b-prefill-cancelled"), graph=extra)
+                assert daemon.cancel(cancelled)
+                result = daemon.drain()
+                jobs = {j.name: j for j in daemon.pool.jobs}
+                futures = daemon.observer.futures
+                outs, device_s = [], 0.0
+                for g, u, p in zip(graphs, sink_of, prompts):
+                    futs = futures[jobs[f"olmo-1b-prefill-{len(p)}"].jid]
+                    assert sorted(futs) == sorted(g.ops), sorted(futs)
+                    for f in futs.values():
+                        device_s += f.result()[1]
+                    outs.append(futs[u].result()[0])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = flash_attention.launches
+                daemon.close()
+                store = load_store(Path(td) / "store.json")
+                status = daemon.status()
+        finally:
+            daemon_mod.report_payload_observation = real_report
+        unequal, errs = [], []
+        for out, ref in zip(outs, witness):
+            unequal.append(int((out.float() != ref.float()).sum()))
+            errs.append(float((out.float() - ref.float()).abs().max()))
+        largest = max(float(ref.float().abs().max()) for ref in witness)
+        stores = {id(jobs[f"olmo-1b-prefill-{len(p)}"].store)
+                  for p in prompts}
+        kept = [k for k in observed if k[0] in stores]
+        # the results dropped: the daemon's observer keeps every job's
+        # payload futures (their results on the card) until told not to
+        futures.clear()
+        del outs, out, futs, f, daemon, jobs
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+    states = sorted((e.spec.name, e.state) for e in store.entries)
+    line = {"phase": "service_exec", "jobs": ids + [cancelled],
+            "wall_s": wall, "sim_makespan_s": result.makespan,
+            "sim_clock": "SimMachine knl_7250 (simulated, not the card)",
+            "device_ms_sum": device_s * 1e3, "flash_launches": launches,
+            "cancelled_job_launches": ran.count("wave_prefill_attn"),
+            "cancelled_job_payloads_run": len(ran),
+            "observed": len(kept), "observed_distinct": len(set(kept)),
+            "logits_equal_witness": [n == 0 for n in unequal],
+            "unequal_elements": unequal,
+            "max_abs_err_vs_witness": max(errs),
+            "tol": LOGIT_RTOL["bfloat16"] * largest,
+            "store_entries": states,
+            "checkpoints": sum(1 for e in sink.events
+                               if e.family == FAM_SERVICE
+                               and e.kind == "checkpoint"),
+            "mem_allocated_before": mem_before,
+            "mem_allocated_after_close": mem_after}
+    emit(line)
+    assert launches == len(prompts) * cfg.n_layers == 64, line
+    assert ran == [] and line["cancelled_job_launches"] == 0, line
+    assert line["observed"] == line["observed_distinct"] == \
+        len(prompts) * per_job, line
+    assert max(errs) <= line["tol"], line
+    assert len(states) == 6 and {s for _, s in states} == {
+        "done", "cancelled"}, line
+    assert dict(states)["olmo-1b-prefill-cancelled"] == "cancelled", line
+    assert [j["state"] for j in status["jobs"]].count("done") == 5, line
+    assert mem_after <= mem_before, line
+    return line
 
 
 def main() -> int:
@@ -2062,7 +2253,15 @@ def main() -> int:
     # 5b. runtime: the paper's runtime on the sim, then its executor running
     # olmo-1b prefills on CUDA streams
     runtime_sim()
-    rt_lines = runtime_exec(dev)
+    olmo_setup = olmo_runtime_setup(dev)
+    rt_lines = runtime_exec(dev, olmo_setup)
+    service = service_exec(dev, olmo_setup)
+    # the daemon's pool and its payload observer refer to each other, so
+    # its jobs' graphs, and through their payloads the params, go only
+    # with the cyclic collector
+    del olmo_setup
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6. slice: recurrentgemma-2b at full width ------------------------------
     cfg = get_config("recurrentgemma-2b")
@@ -2186,6 +2385,7 @@ def main() -> int:
                "whisper-small": whisper["launches"]["flash_attention"],
                "olmo-1b runtime": sum(line["flash_launches"]
                                       for line in rt_lines),
+               "olmo-1b service": service["flash_launches"],
                "olmo-1b train": train["flash_launches"],
                "mixtral-8x7b train": moe_train["flash_launches"]}
     fa["launches"] = sum(by_path.values())

@@ -308,6 +308,37 @@ def _tensors(value):
             yield from _tensors(v)
 
 
+class _StreamPool:
+    """The worker streams of every executor in the process, per device.
+
+    A worker thread leases one stream a device for as long as it lives and
+    its executor hands the leases back once its workers are gone (the end
+    of a batch ``run``, or ``close``), so the streams ever made are as many
+    as the workers alive at once, however many runs and executors there
+    have been.  ``made`` counts them by device index."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: dict[int, list[torch.cuda.Stream]] = {}
+        self.made: dict[int, int] = {}
+
+    def lease(self, index: int) -> torch.cuda.Stream:
+        with self._lock:
+            free = self._free.setdefault(index, [])
+            if free:
+                return free.pop()
+            self.made[index] = self.made.get(index, 0) + 1
+        return torch.cuda.Stream(device=index)
+
+    def give_back(self, leases: list[tuple[int, torch.cuda.Stream]]) -> None:
+        with self._lock:
+            for index, stream in leases:
+                self._free.setdefault(index, []).append(stream)
+
+
+WORKER_STREAMS = _StreamPool()
+
+
 class _Done(tuple):
     """A finished payload's ``(result, seconds)``, carrying the CUDA event
     recorded after it on its worker's stream (None on the CPU), so a
@@ -328,9 +359,10 @@ class RealGraphExecutor:
     payload runs.  On ``"cpu"`` workers are plain threads timed with
     ``perf_counter``, as the reference's.  On CUDA:
 
-    * each worker thread owns one ``torch.cuda.Stream`` per device and
-      runs its payloads under ``torch.cuda.stream(...)``, so the kernel
-      wrappers, which launch on the current stream, land on it;
+    * each worker thread leases one stream per device from
+      ``WORKER_STREAMS`` and runs its payloads under
+      ``torch.cuda.stream(...)``, so the kernel wrappers, which launch on
+      the current stream, land on it;
     * before a payload its stream waits on the event recorded after each
       dep (and on one recorded on the submitting thread's stream, so
       what the caller queued before submitting is done first), and every
@@ -347,9 +379,18 @@ class RealGraphExecutor:
 
     ``run`` returns once the last op's end event completed; its results
     are ``record_stream``-ed on the caller's current stream, so reading
-    and freeing them there is safe.  ``spans`` maps each op of the last
-    ``run`` to its (start, end) in seconds from the run's start (on CUDA
-    from an event recorded on the caller's stream), for overlap counts.
+    and freeing them there is safe.  Once its workers are gone (the end of
+    a batch ``run``; ``close`` in persistent mode) the executor hands its
+    streams back and frees cuBLAS's workspaces: PyTorch keeps one (32 MiB
+    on Hopper) for each (handle, stream) pair a GEMM ran on, for the life
+    of the process, and counts it in ``memory_allocated``.  So neither
+    leaves memory allocated on the card; the next GEMM on a stream
+    allocates its workspace again from the cache.  The freeing is
+    process-wide (PyTorch has no per-stream call), so ``run`` and
+    ``close`` must not race another thread's GEMMs.  ``spans`` maps each
+    op of the last ``run`` to its (start, end) in seconds from the run's
+    start (on CUDA from an event recorded on the caller's stream), for
+    overlap counts.
 
     Real timings can feed the same closed loop as the simulated
     schedulers: pass ``store``/``plan`` to ``run`` and every payload
@@ -380,6 +421,8 @@ class RealGraphExecutor:
         self.device = resolve_device(device)
         self.spans: dict[int, tuple[float, float]] = {}
         self._local = threading.local()   # a worker's streams by device
+        self._leases: list[tuple[int, torch.cuda.Stream]] = []
+        self._lease_lock = threading.Lock()
         self._pool: ThreadPoolExecutor | None = (
             ThreadPoolExecutor(max_workers=max_workers)
             if persistent else None)
@@ -390,8 +433,22 @@ class RealGraphExecutor:
         streams = self._local.__dict__.setdefault("streams", {})
         index = torch.cuda.current_device()
         if index not in streams:
-            streams[index] = torch.cuda.Stream()
+            streams[index] = WORKER_STREAMS.lease(index)
+            with self._lease_lock:
+                self._leases.append((index, streams[index]))
         return streams[index]
+
+    def _release(self) -> None:
+        """Once the workers are gone: wait for their streams, hand them
+        back and free cuBLAS's per-stream workspaces (class docstring)."""
+        with self._lease_lock:
+            leases, self._leases = self._leases, []
+        if not leases:
+            return
+        for _, stream in leases:
+            stream.synchronize()
+        WORKER_STREAMS.give_back(leases)
+        torch._C._cuda_clearCublasWorkspaces()
 
     def _execute(self, op, vals: dict, waits: list, device, modes
                  ) -> tuple[_Done, tuple]:
@@ -479,11 +536,13 @@ class RealGraphExecutor:
         return self._pool.submit(call)
 
     def close(self) -> None:
-        """Shut down the persistent worker set (queued work cancelled,
-        running payloads finish).  No-op in batch mode."""
+        """Shut down the persistent worker set: queued work is cancelled,
+        running payloads finish (waited for, unlike the reference, so the
+        streams can be handed back).  No-op in batch mode."""
         if self._pool is not None:
-            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
+            self._release()
 
     def run(self, graph: OpGraph, *, store: PlanStore | None = None,
             plan: ConcurrencyPlan | None = None
@@ -503,34 +562,38 @@ class RealGraphExecutor:
                 return
             report_payload_observation(store, plan, graph.ops[uid], dt)
 
-        with ThreadPoolExecutor(max_workers=self.max_workers) as pool:
-            futures: dict[Future, int] = {}
+        try:
+            with ThreadPoolExecutor(max_workers=self.max_workers) as pool:
+                futures: dict[Future, int] = {}
 
-            def submit(uid: int) -> None:
-                op = graph.ops[uid]
-                deps = {d: results[d] for d in op.deps}
-                waits = base + [ends[d] for d in op.deps
-                                if ends[d] is not None]
-                futures[pool.submit(self._execute, op, deps, waits, None,
-                                    modes)] = uid
+                def submit(uid: int) -> None:
+                    op = graph.ops[uid]
+                    deps = {d: results[d] for d in op.deps}
+                    waits = base + [ends[d] for d in op.deps
+                                    if ends[d] is not None]
+                    futures[pool.submit(self._execute, op, deps, waits,
+                                        None, modes)] = uid
 
-            for u in ready:
-                submit(u)
-            while futures:
-                done, _ = wait(list(futures), return_when=FIRST_COMPLETED)
-                for fut in done:
-                    uid = futures.pop(fut)
-                    finished, marks[uid] = fut.result()
-                    out, dt = finished
-                    ends[uid] = finished.event
-                    results[uid] = out
-                    timings[uid] = dt
-                    observe(uid, dt)
-                    for c in graph.consumers(uid):
-                        pending[c] -= 1
-                        if pending[c] == 0:
-                            submit(c)
-        wall = time.perf_counter() - t0
+                for u in ready:
+                    submit(u)
+                while futures:
+                    done, _ = wait(list(futures),
+                                   return_when=FIRST_COMPLETED)
+                    for fut in done:
+                        uid = futures.pop(fut)
+                        finished, marks[uid] = fut.result()
+                        out, dt = finished
+                        ends[uid] = finished.event
+                        results[uid] = out
+                        timings[uid] = dt
+                        observe(uid, dt)
+                        for c in graph.consumers(uid):
+                            pending[c] -= 1
+                            if pending[c] == 0:
+                                submit(c)
+            wall = time.perf_counter() - t0
+        finally:
+            self._release()
         if base:
             base[0].synchronize()
             stream = torch.cuda.current_stream()

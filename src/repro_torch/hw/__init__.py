@@ -1,4 +1,5 @@
-from repro_torch.hw.spec import (H100, H100Spec, dominant_term,
-                                 matmul_class)
+from repro_torch.hw.spec import (H100, H100Spec, KNL, ClusterSpec,
+                                 KnlLikeSpec, dominant_term, matmul_class)
 
-__all__ = ["H100", "H100Spec", "dominant_term", "matmul_class"]
+__all__ = ["H100", "H100Spec", "KNL", "ClusterSpec", "KnlLikeSpec",
+           "dominant_term", "matmul_class"]

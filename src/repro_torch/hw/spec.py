@@ -10,7 +10,8 @@ tensor cores, fp32 GEMMs (TF32 on the tensor cores only where
 ``KnlLikeSpec`` (a copy of the reference's) models the paper's Knights
 Landing socket for the scheduling stack's cost oracle
 (``core.simmachine``); it is never used for the card's roofline.
-``ClusterSpec`` comes with the port's cluster layer.
+``ClusterSpec`` (also the reference's) groups such machines for the
+cluster layer.
 """
 
 from __future__ import annotations
@@ -169,6 +170,46 @@ class KnlLikeSpec:
 
 
 KNL = KnlLikeSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSpec:
+    """N (possibly heterogeneous) KNL-like machines behind one placement
+    layer (``repro_torch.cluster``).
+
+    The cluster model is shared-nothing: machines exchange no memory or
+    bandwidth, only JOBS move between them — so each machine keeps its
+    own ``KnlLikeSpec`` cost oracle and the cluster layer is pure
+    routing.  ``transfer_cost_s`` is the modeled wall-clock price of
+    moving one job's working set between machines; the router charges it
+    (plus restart waste) through ``MovePrice`` before any cross-machine
+    split or migration of started work, mirroring how the preemption
+    economics price every other move in the stack."""
+
+    machines: tuple[KnlLikeSpec, ...] = (KNL,)
+    name: str = "cluster"
+    transfer_cost_s: float = 0.5e-3       # per-job cross-machine move price
+
+    def __post_init__(self):
+        if not self.machines:
+            raise ValueError("ClusterSpec needs at least one machine")
+
+    @classmethod
+    def homogeneous(cls, n: int, spec: KnlLikeSpec = KNL,
+                    **kwargs) -> "ClusterSpec":
+        return cls(machines=tuple(spec for _ in range(n)), **kwargs)
+
+    @property
+    def n_machines(self) -> int:
+        return len(self.machines)
+
+    @property
+    def total_cores(self) -> int:
+        return sum(m.cores for m in self.machines)
+
+    def __len__(self) -> int:
+        return len(self.machines)
+
 
 
 def matmul_class(dtype: torch.dtype) -> str:

@@ -26,9 +26,9 @@ The default sink is ``NullSink`` — ``enabled`` is False and every emit
 site in the schedulers is guarded by it, so the default configuration
 builds no event objects at all and is bit-for-bit the untraced scheduler
 (tracing is read-only by construction; the differential/golden suites and
-the traced parity leg in ``repro.multitenant.parity`` lock it down).
+the traced parity leg in ``repro_torch.multitenant.parity`` lock it down).
 ``RecordingSink`` collects events in memory for the metrics registry
-(``repro.obs.metrics``) and the Perfetto exporter (``repro.obs.perfetto``).
+(``repro_torch.obs.metrics``) and the Perfetto exporter (``repro_torch.obs.perfetto``).
 
 This module deliberately imports nothing from ``repro_torch.core`` — the core
 imports *us* (the sink rides on ``StrategyConfig``), and the obs layer

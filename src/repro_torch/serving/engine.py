@@ -181,10 +181,38 @@ class ServeEngine:
 
     def pending_waves(self) -> list[list[Request]]:
         """The wave partition ``run()`` would execute, without consuming
-        the queue."""
+        the queue — the unit a runtime pool schedules as one job."""
         reqs = list(self.queue)
         return [reqs[i:i + self.n_slots]
                 for i in range(0, len(reqs), self.n_slots)]
+
+    def submit_waves_to_pool(self, pool, *, priority: float = 1.0,
+                             arrival_gap: float = 0.0,
+                             latency_target: float | None = None) -> list:
+        """Submit every pending wave to a
+        ``repro_torch.multitenant.RuntimePool`` as one job each (wave i
+        arrives at ``i * arrival_gap``), so serving
+        waves co-schedule against training steps and other tenants on the
+        shared machine.  ``latency_target`` maps the serving SLO onto pool
+        deadlines — each wave's deadline is its arrival time plus the
+        target, which is what arms the pool's slack-aware ordering and
+        (when enabled) deadline-driven preemption for these jobs.  Returns
+        the created jobs; the engine's real queue is left untouched."""
+        from repro_torch.service.spec import (ATTACHED_GRAPH, JobSpec,
+                                              submit_spec)
+        jobs = []
+        for i, wave in enumerate(self.pending_waves()):
+            g = wave_op_graph(self.cfg, wave, n_slots=self.n_slots,
+                              name=f"{self.cfg.arch_id}-wave{i}")
+            # same wire schema as the CLI and the daemon inbox; the
+            # wave's graph only exists in-process, so it rides along as
+            # an attached graph rather than a rebuildable workload name
+            spec = JobSpec(workload=ATTACHED_GRAPH, name=g.name,
+                           priority=priority,
+                           submit_time=i * arrival_gap,
+                           latency_budget=latency_target)
+            jobs.append(submit_spec(pool, spec, graph=g))
+        return jobs
 
 
 def wave_op_graph(cfg: ModelConfig, wave: list[Request], *,

@@ -445,3 +445,186 @@ def test_device_for_maps_machines_to_cuda_devices(cuda_device):
                                                       machine % count)
     if count == 1:
         assert ex.device_for(3) == torch.device("cuda", 0)
+
+
+# ---------------------------------------------------------------------------
+# on the card: memory the executor leaves behind, and the daemon
+# ---------------------------------------------------------------------------
+
+def matmul_graph(n_ops: int, size: int = 1024):
+    """``n_ops`` independent bf16 GEMMs, each a cuBLAS call."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((size, size), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    b = P.GraphBuilder("gemms")
+    for i in range(n_ops):
+        b.add("X", (i + 1,), payload=lambda deps, a=a: (a @ a).sum())
+    return b.build(), a
+
+
+@pytest.mark.cuda
+def test_a_new_stream_gets_a_cublas_workspace(cuda_device):
+    """The mechanism the executor guards against: a GEMM on a stream that
+    has not run one before leaves a workspace allocated for the life of
+    the process, counted in ``memory_allocated``, until PyTorch's
+    workspaces are cleared."""
+    a = torch.ones((256, 256), device="cuda", dtype=torch.bfloat16)
+    (a @ a).sum().item()
+    before = torch.cuda.memory_allocated()
+    grew = []
+
+    def on_a_new_stream():
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            out = (a @ a).sum()
+        stream.synchronize()
+        del out
+        grew.append(torch.cuda.memory_allocated() - before)
+
+    t = threading.Thread(target=on_a_new_stream)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    print(f"cublas workspace of one new (handle, stream): {grew[0]} bytes")
+    assert grew[0] > 0
+    torch._C._cuda_clearCublasWorkspaces()
+    assert torch.cuda.memory_allocated() <= before
+
+
+@pytest.mark.cuda
+def test_executors_leave_no_memory_allocated(cuda_device):
+    graph, a = matmul_graph(8)
+    (a @ a).sum().item()
+    torch.cuda.synchronize()
+    made = dict(P.runtime.WORKER_STREAMS.made)
+    before = torch.cuda.memory_allocated()
+    readings = []
+    for workers in (1, 4, 1, 4, 4):
+        ex = P.RealGraphExecutor(max_workers=workers)
+        results, _, _ = ex.run(graph)
+        assert len(results) == graph.n_ops
+        del results
+        readings.append(torch.cuda.memory_allocated() - before)
+        ex.close()
+        readings.append(torch.cuda.memory_allocated() - before)
+    new = P.runtime.WORKER_STREAMS.made.get(0, 0) - made.get(0, 0)
+    print(f"memory_allocated after each run and close, less before: "
+          f"{readings}; worker streams made: {new}")
+    assert max(readings) <= 0, readings
+    assert new <= 4
+
+
+@pytest.mark.cuda
+def test_persistent_executor_does_not_grow_after_its_workers_start(
+        cuda_device):
+    graph, a = matmul_graph(1)
+    op = graph.ops[0]
+    (a @ a).sum().item()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    barrier = threading.Barrier(4)
+
+    def held(deps):
+        barrier.wait(timeout=60)        # four ops at once: four workers
+        return op.payload(deps)
+
+    first = dataclasses.replace(op, payload=held)
+    ex = P.RealGraphExecutor(max_workers=4, persistent=True)
+    try:
+        futs = [ex.submit_op(first, {}) for _ in range(4)]
+        for f in futs:
+            f.result(timeout=60)
+        del futs
+        warm = torch.cuda.memory_allocated()
+        for _ in range(46):
+            ex.submit_op(op, {}).result(timeout=60)
+        assert torch.cuda.memory_allocated() <= warm
+    finally:
+        ex.close()
+    assert torch.cuda.memory_allocated() <= before
+
+
+def cuda_payload_graph():
+    """Two chains of CUDA tensor payloads joined at the end."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.randn((512, 512), generator=gen, device="cuda")
+    b = P.GraphBuilder("cuda-tensors")
+    x = b.add("X", (32, 16, 16, 64), flops=4e8, bytes_moved=2e6,
+              payload=lambda deps: torch.tanh(w @ w))
+    x2 = b.add("X", (32, 16, 16, 32), flops=2e8, bytes_moved=1e6, deps=[x],
+               payload=lambda deps: deps[x] @ w + 1)
+    y = b.add("Y", (16, 16, 64), flops=1e8, bytes_moved=1e6,
+              payload=lambda deps: w.t() @ w)
+    b.add("Z", (8, 8), flops=1e6, bytes_moved=1e4, deps=[x2, y],
+          payload=lambda deps: deps[x2] @ deps[y])
+    return b.build()
+
+
+@pytest.mark.cuda
+def test_daemon_runs_payloads_on_the_card_as_in_order(cuda_device,
+                                                      tmp_path):
+    from repro_torch.multitenant import PoolConfig
+    from repro_torch.service import ATTACHED_GRAPH, JobSpec, PoolDaemon
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = cuda_payload_graph()
+    in_order = {}
+    for uid in graph.topo_order():
+        op = graph.ops[uid]
+        in_order[uid] = op.payload({d: in_order[d] for d in op.deps})
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    d = PoolDaemon(tmp_path, config=PoolConfig(max_active=2),
+                   max_workers=4, payload_feedback=True)
+    assert d.executor.device == torch.device("cuda")
+    d.submit(JobSpec(workload=ATTACHED_GRAPH, name="tensors"), graph=graph)
+    d.submit(JobSpec(workload="dcgan"))
+    d.drain()
+    jid = d.pool.jobs[0].jid
+    got = {u: f.result()[0] for u, f in d.observer.futures[jid].items()}
+    d.close()
+    for u, ref in in_order.items():
+        assert got[u].is_cuda
+        assert torch.equal(got[u], ref), u
+    del got
+    d.observer.futures.clear()
+    assert torch.cuda.memory_allocated() <= before
+
+
+@pytest.mark.cuda
+def test_a_cancelled_job_launches_nothing_on_the_card(cuda_device,
+                                                      tmp_path):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.multitenant import PoolConfig
+    from repro_torch.service import ATTACHED_GRAPH, JobSpec, PoolDaemon
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 256, 4, 128), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+
+    def flash_graph(name):
+        b = P.GraphBuilder(name)
+        u = b.add("Attn", (1, 256, 4, 128), flops=1e9, bytes_moved=1e6,
+                  payload=lambda deps: flash_attention(q, q, q, causal=True))
+        b.add("Attn", (1, 256, 4, 64), flops=1e9, bytes_moved=1e6,
+              deps=[u], payload=lambda deps: flash_attention(
+                  deps[u], q, q, causal=True))
+        return b.build()
+
+    d = PoolDaemon(tmp_path, config=PoolConfig(max_active=2),
+                   max_workers=2)
+    with torch.no_grad():
+        flash_attention(q, q, q, causal=True)       # build and load
+        flash_attention.launches = 0
+        d.submit(JobSpec(workload=ATTACHED_GRAPH, name="kept"),
+                 graph=flash_graph("kept"))
+        cancelled = d.submit(JobSpec(workload=ATTACHED_GRAPH,
+                                     name="cancelled"),
+                             graph=flash_graph("cancelled"))
+        assert d.cancel(cancelled)
+        d.drain()
+        for futs in d.observer.futures.values():
+            for f in futs.values():
+                f.result(timeout=60)
+    d.close()
+    assert flash_attention.launches == 2
+    jids = {j.name: j.jid for j in d.pool.jobs}
+    assert jids["cancelled"] not in d.observer.futures
