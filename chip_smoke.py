@@ -177,6 +177,25 @@ Phases, one JSON line each:
              ce and aux), to rule the kernel in or out of what the routing
              does.  2 layers do not fit: the step holds the old and the new
              state at once (see ``MOE_TRAIN_LAYERS``);
+  14b. multidevice  the sharded train step on the production backend at
+             world size 1: a child process (``--multidevice``) brings up
+             NCCL on the card with a (1, 1) ("data", "model") mesh, places
+             the train phase's olmo-1b state (same seed, batch, B=4,
+             S=2048, 2 microbatches, remat, lr) by ``default_plan`` as
+             DTensors and takes 3 AdamW steps with the batch over "data":
+             the losses held within 5e-3 of the train phase's first 3
+             (the reference's own sharded-against-single bound), the
+             median step beside the unsharded one, one more step under
+             ``torch.profiler`` (its device ms beside the train phase's
+             traced step, and the device's share of its wall), peak
+             memory, the collectives a step (``CommDebugMode``), each
+             kernel's launches on this path (flash: the train phase's
+             count for 3 steps, a rank's attention being one card's; the
+             recurrences none), a save and ``restore(shardings=...)`` of
+             the sharded state read back bit for bit, and
+             ``ring_ag_matmul`` on the olmo-1b MLP up-projection
+             (8192x2048 @ 2048x8192, bf16) against ``torch.matmul``, bit
+             for bit, both timed by CUDA events;
   15. dryrun  every (arch x shape) cell of the reference's matrix (10
              archs x 4 shapes; 7 skipped for the reference's reason)
              counted on the meta device at full depth by
@@ -296,6 +315,10 @@ GRAD_SHAPES = {"flash_attention": (2, 256, 16, 16, 128),
 # (PERF.md, section 6)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 4
 TRAIN_LR = 1e-4
+# the multidevice phase: the train phase's setup sharded on a (1, 1) mesh
+# for this many steps; losses within the reference's sharded-against-single
+# bound (tests/test_multidevice.py); the child's time limit
+MULTI_STEPS, MULTI_LOSS_TOL, MULTI_TIMEOUT_S = 3, 5e-3, 600
 # the mixtral-8x7b train phase: full width, B=2 sequences of S=2048 in one
 # microbatch, 3 steps on one fixed batch, the olmo phase's lr and warm-up.
 # Depth 1 of 32: the step keeps the old state while it builds the new one
@@ -1397,6 +1420,7 @@ def train_olmo(dev) -> dict:
         "loss": losses, "lr_per_step": [m["lr"] for m in metrics],
         "grad_norm": [m["grad_norm"] for m in metrics],
         "peak_mem_bytes": peak, "mem_at_reset_bytes": base,
+        "traced_step_device_ms": kernels["device_ms"],
         "flash_launches": launches, "expected_flash_launches": expected,
         "ok": finite and losses[-1] < losses[0] and launches == expected}
     emit(kernels)
@@ -1634,6 +1658,182 @@ def train_grad_check(dev) -> dict:
     del params, grads
     torch.cuda.empty_cache()
     return result
+
+
+def multidevice_child(tmp: str) -> dict:
+    """The multidevice phase's child: NCCL at world size 1 on card 0, the
+    train phase's olmo-1b state placed by ``default_plan`` on a (1, 1)
+    mesh, ``MULTI_STEPS`` sharded steps, the checkpoint round trip and the
+    ring collective matmul.  Returns its line."""
+    import statistics
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.rwkv6 import wkv6
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import default_plan, tree_leaves
+    from repro_torch.sharding import (distribute_tree, named_sharding_tree,
+                                      ring_ag_matmul)
+    from repro_torch.train import (CheckpointManager, init_state,
+                                   make_train_step, state_specs)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        cfg, tcfg = olmo_train_setup()
+        cfg = dataclasses.replace(cfg, batch_axes=("data",))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shardings = named_sharding_tree(default_plan(), mesh,
+                                        state_specs(cfg, tcfg))
+        state = distribute_tree(
+            init_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev), shardings)
+        source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH,
+                                        vocab=cfg.vocab))
+        batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+                 for k, v in source.batch_at(0).items()}
+        step = make_train_step(cfg, tcfg, batch_axes=("data",))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+
+        kernels = (flash_attention, rglru, wkv6)
+        for k in kernels:
+            k.launches = 0
+        times, losses, comms = [], [], {}
+        for i in range(MULTI_STEPS):
+            t0 = time.perf_counter()
+            if i == 0:
+                # the first step (not in the median) under the counter
+                with CommDebugMode() as cm:
+                    state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                comms = {"total": cm.get_total_counts(),
+                         "by_op": {str(op): n for op, n in
+                                   cm.get_comm_counts().items()}}
+            else:
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        placements = sorted({str(t.placements)
+                             for t in tree_leaves(state["params"])})
+        # one more step under the profiler: the device's share of its wall
+        t0 = time.perf_counter()
+        trace = profile_train_step(step, state, batch, cfg.arch_id)
+        traced = {"wall_s": time.perf_counter() - t0,
+                  "device_ms": trace["device_ms"],
+                  "groups": trace["groups"]}
+        traced["device_busy_share"] = traced["device_ms"] / 1e3 \
+            / traced["wall_s"]
+
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(tmp, device=dev)
+        mgr.save(MULTI_STEPS, state, block=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _, back_step = mgr.restore(shardings=shardings)
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves(state), tree_leaves(back)))
+        exact = back_step == MULTI_STEPS and len(pairs) == len(
+            tree_leaves(shardings)) and all(
+            a.placements == b.placements and a.dtype == b.dtype
+            and torch.equal(a.to_local(), b.to_local()) for a, b in pairs)
+        ck_bytes = sum(a.numel() * a.element_size() for a, _ in pairs)
+        del back, pairs, state
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = torch.randn(cfg.d_model, cfg.d_ff, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y = ring_ag_matmul(x, w, mesh=mesh, axis="model")
+        ref = torch.matmul(x, w)
+        ring = {"shape": [list(x.shape), list(w.shape)], "dtype": "bfloat16",
+                "bit_equal": bool(torch.equal(y, ref)),
+                "ms": cuda_ms(lambda: ring_ag_matmul(x, w, mesh=mesh,
+                                                     axis="model")),
+                "matmul_ms": cuda_ms(lambda: torch.matmul(x, w))}
+        return {"phase": "multidevice", "backend": dist.get_backend(),
+                "world_size": dist.get_world_size(),
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "plan": "default_plan", "batch_axes": ["data"],
+                "param_placements": placements, "init_s": init_s,
+                "step_s": times,
+                "median_step_s": statistics.median(times[1:]),
+                "loss": losses, "peak_mem_bytes": peak,
+                "collectives_first_step": comms, "launches": launches,
+                "traced_step": traced,
+                "checkpoint": {"exact": exact, "bytes": ck_bytes,
+                               "save_s": save_s, "restore_s": restore_s},
+                "ring_ag_matmul": ring}
+    finally:
+        dist.destroy_process_group()
+
+
+def multidevice(train: dict) -> dict:
+    """The multidevice phase: ``multidevice_child`` in a process of its
+    own (a process group of its own, the card's memory its own), its line
+    checked against the unsharded train phase's."""
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--multidevice", tmp], capture_output=True,
+                             text=True, timeout=MULTI_TIMEOUT_S,
+                             stdin=subprocess.DEVNULL)
+        wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert out.returncode == 0 and lines, (out.returncode,
+                                           out.stderr[-4000:])
+    line = json.loads(lines[-1])
+    gaps = [abs(a - b) for a, b in zip(line["loss"], train["loss"])]
+    line.update({
+        "wall_s": wall, "unsharded_loss": train["loss"][:MULTI_STEPS],
+        "loss_gap": gaps, "loss_tol": MULTI_LOSS_TOL,
+        "unsharded_median_step_s": train["median_step_s_2_to_4"],
+        "step_ratio": line["median_step_s"] / train["median_step_s_2_to_4"],
+        "unsharded_peak_mem_bytes": train["peak_mem_bytes"],
+        "unsharded_traced_step_device_ms": train["traced_step_device_ms"],
+        "peak_ratio": line["peak_mem_bytes"] / train["peak_mem_bytes"]})
+    # each rank's attention is one card's: flash forward in every layer,
+    # microbatch and remat recompute, as the train phase counts it
+    expected = train["expected_flash_launches"] // TRAIN_STEPS * MULTI_STEPS
+    line["expected_launches"] = {"flash_attention": expected, "rglru": 0,
+                                 "wkv6": 0}
+    line["ok"] = (len(gaps) == MULTI_STEPS
+                  and max(gaps) <= MULTI_LOSS_TOL
+                  and line["backend"] == "nccl"
+                  and line["checkpoint"]["exact"]
+                  and line["ring_ag_matmul"]["bit_equal"]
+                  and line["launches"] == line["expected_launches"])
+    emit(line)
+    assert line["ok"], line
+    return line
 
 
 def dryrun_matrix(spec) -> dict:
@@ -2173,6 +2373,9 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if sys.argv[1:2] == ["--multidevice"]:
+        emit(multidevice_child(sys.argv[2]))
+        return 0
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2367,6 +2570,7 @@ def main() -> int:
     # 12. train: olmo-1b at full width; its gradients against the plain
     # path; mixtral-8x7b at full width cut in depth
     train = train_olmo(dev)
+    multi = multidevice(train)
     train_grad_check(dev)
     moe_train = train_moe(dev)
 
@@ -2387,7 +2591,8 @@ def main() -> int:
                                       for line in rt_lines),
                "olmo-1b service": service["flash_launches"],
                "olmo-1b train": train["flash_launches"],
-               "mixtral-8x7b train": moe_train["flash_launches"]}
+               "mixtral-8x7b train": moe_train["flash_launches"],
+               "olmo-1b multidevice": multi["launches"]["flash_attention"]}
     fa["launches"] = sum(by_path.values())
     rg["launches"] = rgemma["launches"]["rglru"]
     wk["launches"] = rwkv["launches"]["wkv6"]
@@ -2403,8 +2608,14 @@ def main() -> int:
          "at_whisper_encoder": {k_: fa_whisper[k_] for k_ in flash_keys
                                 if k_ in fa_whisper}},
         {**{k_: rg[k_] for k_ in keys},
+         "launches_by_path": {
+             "recurrentgemma-2b": rg["launches"],
+             "olmo-1b multidevice": multi["launches"]["rglru"]},
          "at_b1": {k_: rg_b1[k_] for k_ in keys if k_ in rg_b1}},
         {**{k_: wk[k_] for k_ in keys},
+         "launches_by_path": {
+             "rwkv6-1.6b": wk["launches"],
+             "olmo-1b multidevice": multi["launches"]["wkv6"]},
          "at_b1": {k_: wk_b1[k_] for k_ in keys if k_ in wk_b1}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

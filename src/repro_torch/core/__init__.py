@@ -16,8 +16,8 @@ same behaviour; the executor runs its payloads on CUDA streams):
   simmachine   -- deterministic KNL-like cost oracle
   runtime      -- profile->freeze->schedule driver, real-payload executor
 
-The reference's shard-degree autotuner (``core/autotune.py``) comes with
-the port's multi-device work.
+On a mesh:
+  autotune     -- shard-degree hill climbing on roofline measurements
 """
 
 from repro_torch.core.graph import (
@@ -45,6 +45,9 @@ from repro_torch.core.interference import InterferenceRecorder
 from repro_torch.core.simmachine import SimMachine, Placement
 from repro_torch.core.runtime import (
     ConcurrencyRuntime, RuntimeConfig, TrainingSummary, RealGraphExecutor)
+from repro_torch.core.autotune import (
+    RooflineMeasurement, ShardDegreeAutotuner, ShardDecision,
+    ShardPlanResult, corun_groups, CorunGroup)
 
 __all__ = [
     "Op", "OpGraph", "GraphBuilder", "build_paper_graph",
@@ -68,4 +71,6 @@ __all__ = [
     "SimMachine", "Placement",
     "ConcurrencyRuntime", "RuntimeConfig", "TrainingSummary",
     "RealGraphExecutor",
+    "RooflineMeasurement", "ShardDegreeAutotuner", "ShardDecision",
+    "ShardPlanResult", "corun_groups", "CorunGroup",
 ]

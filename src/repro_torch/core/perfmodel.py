@@ -15,8 +15,7 @@ Two model families, exactly as the paper explores them:
 
 Both are generic over the *measurement function* so the same algorithms
 drive (a) the KNL-like simulated machine for the faithful reproduction and
-(b) the reference's shard-degree autotuner (``core/autotune.py``, which
-comes to the port with multi-device work).
+(b) the shard-degree autotuner (``core/autotune.py``).
 """
 
 from __future__ import annotations

@@ -1,11 +1,17 @@
-"""Model substrate: the config dataclass and the parameter-tree builder.
+"""Model substrate: the config dataclass, the logical sharding axes and
+the parameter-tree builder.
 
 Own copy of ``repro.models.common`` (the JAX package's module imports
 JAX, so the port keeps its own).  ``ModelConfig`` has the same fields and
 the same derived sizes, so a config of one package compares equal, field
 by field, to the other's.  Parameters are nested dicts of tensors under
 the same ``/`` paths and drawn by the same laws as ``TreeBuilder.leaf``.
-The logical sharding axes are not carried yet: the port runs on one card.
+
+Every parameter carries a *logical axis spec* (a tuple of logical axis
+names, one per dim) in a parallel tree, the family module's
+``specs(cfg)``.  A ``ShardingPlan`` maps logical names to mesh axes; its
+``spec_for`` gives the reference's ``PartitionSpec`` as a plain tuple,
+which ``repro_torch.sharding`` turns into DTensor placements.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Any
 import torch
 
 Params = Any          # nested dict of tensors
+Specs = Any           # same structure, leaves = tuple[str | None, ...]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -65,10 +72,14 @@ class ModelConfig:
     # layer of the forward in activation checkpointing, ``maybe_remat``)
     remat: str = "none"
     # kept for field-by-field equality with the reference config; the
-    # port's layer loop does not read them yet (sharding arrives with the
-    # multi-device slice)
+    # port's layer loop is a Python loop and never reads it
     scan_unroll: bool = False
+    # mesh axes the activation batch dim is sharded over; when non-empty,
+    # the dense family's layers pin their (B,S,D) activations to that
+    # placement (``layers.constrain_batch``) on DTensor activations
     batch_axes: tuple = ()
+    # sequence parallelism: shard the SEQ dim of layer-boundary
+    # activations over these axes (``layers.seq_boundary``)
     seq_axes: tuple = ()
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
@@ -113,17 +124,105 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Logical sharding axes
+# ---------------------------------------------------------------------------
+
+# Canonical logical axis names used by every model family:
+#   "embed"   d_model dim            "ff"     mlp hidden dim
+#   "heads"   q-head dim             "kv"     kv-head dim
+#   "vocab"   vocabulary dim         "expert" MoE expert dim
+#   "layers"  stacked layer dim      None     replicated
+LOGICAL_AXES = ("embed", "ff", "heads", "kv", "vocab", "expert", "layers",
+                "conv", "state", "table_d")
+
+SpecEntry = str | tuple[str, ...] | None
+
+
+@dataclasses.dataclass
+class ShardingPlan:
+    """logical axis -> tuple of mesh axes.  The tunable object: the
+    shard-degree autotuner rewrites entries (``sharding.plan_from_degrees``).
+
+    ``batch_axes``/``seq_axes`` control activation shardings."""
+
+    rules: dict[str, tuple[str, ...]]
+    batch_axes: tuple[str, ...] = ("data",)
+    seq_axes: tuple[str, ...] = ()
+
+    def spec_for(self, logical: tuple[str | None, ...]
+                 ) -> tuple[SpecEntry, ...]:
+        """One entry a dim: None (replicated), a mesh axis name, or a
+        tuple of names (major first), as ``tuple(PartitionSpec(...))`` of
+        the reference's."""
+        parts: list[SpecEntry] = []
+        used: set[str] = set()
+        for name in logical:
+            axes = self.rules.get(name, ()) if name else ()
+            # a mesh axis may appear at most once per spec: first
+            # occurrence wins (MoE (expert, embed, ff) keeps expert
+            # parallelism on the model axis and leaves ff unsharded;
+            # rwkv (embed, embed) square weights shard one dim)
+            axes = tuple(a for a in axes if a not in used)
+            used.update(axes)
+            if len(axes) == 0:
+                parts.append(None)
+            elif len(axes) == 1:
+                parts.append(axes[0])
+            else:
+                parts.append(tuple(axes))
+        return tuple(parts)
+
+    def tree_specs(self, logical_tree: Specs) -> Any:
+        return map_specs(self.spec_for, logical_tree)
+
+
+def map_specs(fn, logical_tree: Specs) -> Any:
+    """Apply ``fn`` to every logical-axes tuple of a specs tree (a nested
+    dict; an empty tuple is a scalar's spec)."""
+    if isinstance(logical_tree, dict):
+        return {k: map_specs(fn, v) for k, v in logical_tree.items()}
+    return fn(logical_tree)
+
+
+def default_plan() -> ShardingPlan:
+    """Uniform max shard degree on the model axis for every op class (the
+    analogue of TF's one intra-op parallelism for all operations), FSDP
+    on the data axis over the embed dim."""
+    return ShardingPlan(rules={
+        "embed": ("data",),       # FSDP: gather at use
+        "ff": ("model",),
+        "heads": ("model",),
+        "kv": ("model",),
+        "vocab": ("model",),      # unembed projection
+        "expert": ("model",),
+        "layers": (),
+        "conv": (),
+        "state": (),
+        # the input embedding table keeps a 1-D vocab sharding
+        "table_d": (),
+    })
+
+
+def replicated_plan() -> ShardingPlan:
+    return ShardingPlan(rules={k: () for k in LOGICAL_AXES},
+                        batch_axes=(), seq_axes=())
+
+
+# ---------------------------------------------------------------------------
 # Param tree construction
 # ---------------------------------------------------------------------------
 
 class TreeBuilder:
-    """Collects parameters under '/'-separated paths.
+    """Collects parameters and their logical axes under '/'-separated
+    paths.
 
     Same laws as the reference ``TreeBuilder.leaf``: normal draws scaled
     by 1/sqrt(fan_in) (fan_in = shape[-2], or shape[-1] for vectors) unless
     a scale is given, zeros or ones on request.  Draws come from
     ``generator``, which must live on ``device``.  On the ``meta`` device
-    nothing is drawn or allocated: only shapes and dtypes exist."""
+    nothing is drawn or allocated: only shapes and dtypes exist.
+    ``build()`` returns the params; ``specs`` holds the logical-axes tree
+    of the same structure."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: torch.Generator | None):
@@ -131,9 +230,14 @@ class TreeBuilder:
         self.device = torch.device(device)
         self.generator = generator
         self.params: dict = {}
+        self.specs: dict = {}
 
-    def leaf(self, path: str, shape: tuple[int, ...], *,
+    def leaf(self, path: str, shape: tuple[int, ...],
+             logical: tuple[str | None, ...], *,
              init: str = "normal", scale: float | None = None) -> None:
+        if len(shape) != len(logical):
+            raise ValueError(f"{path}: shape {shape} and logical axes "
+                             f"{logical} differ in rank")
         dtype = self.cfg.param_torch_dtype
         if self.device.type == "meta":
             arr = torch.empty(shape, dtype=dtype, device="meta")
@@ -147,14 +251,22 @@ class TreeBuilder:
             arr = torch.randn(shape, generator=self.generator,
                               dtype=torch.float32, device=self.device)
             arr = arr.mul_(s).to(dtype)
-        node = self.params
+        node, snode = self.params, self.specs
         parts = path.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
+            snode = snode.setdefault(p, {})
         node[parts[-1]] = arr
+        snode[parts[-1]] = tuple(logical)
 
     def build(self) -> Params:
         return self.params
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def tree_leaves(tree: Params) -> list[torch.Tensor]:

@@ -18,6 +18,12 @@ a gradient through one, its backward recomputes the differentiable torch
 version of the same function (``kernels._grad.KernelFn``: here
 ``_attention_torch``, in the recurrences' ``ops.py`` their plain scans), as
 the reference differentiates its jnp math.
+
+Sharded activations are DTensors (``torch.distributed.tensor``):
+``constrain_batch`` and ``seq_boundary`` pin their batch (and sequence)
+dims to mesh axes, as the reference's sharding constraints do, and
+attention on DTensors runs on each rank's local tensors (no kernel takes
+a DTensor).
 """
 
 from __future__ import annotations
@@ -34,6 +40,77 @@ from repro_torch.hw.cost import counts_meta
 from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru import rglru, rglru_plain
+from repro_torch.models.common import is_dtensor
+
+
+def _batch_placements(mesh, ndim: int, batch_axes: tuple,
+                      seq_axes: tuple) -> tuple:
+    """One placement a mesh dim: Shard(0) on the batch axes, Shard(1) on
+    the sequence axes (a tensor of 2 dims or more), Replicate elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    unknown = [a for a in (*batch_axes, *seq_axes) if a not in names]
+    if unknown:
+        raise ValueError(f"axes {unknown} are not axes of the mesh {names}")
+    return tuple(Shard(0) if n in batch_axes
+                 else Shard(1) if n in seq_axes and ndim >= 2
+                 else Replicate() for n in names)
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial sums reduced (Partial -> Replicate on
+    those mesh dims), its other placements kept."""
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def constrain_batch(x: torch.Tensor, batch_axes: tuple,
+                    seq_axes: tuple = ()) -> torch.Tensor:
+    """Pin the (batch[, seq]) dims' sharding of a (B,S,...) activation:
+    a DTensor ``redistribute`` to Shard(0) on ``batch_axes`` (and Shard(1)
+    on ``seq_axes``, sequence parallelism), replicated on its mesh's other
+    axes.  A no-op when both are empty (single-device paths) and on a
+    plain tensor, which holds the whole activation."""
+    if (not batch_axes and not seq_axes) or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, _batch_placements(
+        x.device_mesh, x.ndim, tuple(batch_axes), tuple(seq_axes)))
+
+
+class _SeqBoundary(torch.autograd.Function):
+    """Identity whose forward pins the primal's placement and whose
+    backward passes the cotangent on as it comes."""
+
+    @staticmethod
+    def forward(ctx, x, batch_axes, seq_axes):
+        return constrain_batch(x, batch_axes, seq_axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def seq_boundary(x: torch.Tensor, batch_axes: tuple, seq_axes: tuple
+                 ) -> torch.Tensor:
+    """Sequence-parallel boundary: constrain the PRIMAL to (batch,
+    seq-sharded) but leave the COTANGENT unconstrained, as the reference's
+    custom VJP does (pinning the cotangent too forces seq-sharded
+    weight-gradient contractions that conflict with the tensor-parallel
+    sharding on the same mesh axis).  A no-op as ``constrain_batch``."""
+    if (not batch_axes and not seq_axes) or not is_dtensor(x):
+        return x
+    return _SeqBoundary.apply(x, tuple(batch_axes), tuple(seq_axes))
+
+
+def require_unsharded(cfg, family: str) -> None:
+    """Raise unless ``cfg`` asks for no activation sharding: only the
+    dense family runs sharded."""
+    if cfg.batch_axes or cfg.seq_axes:
+        raise NotImplementedError(
+            f"{family}: a sharded batch (batch_axes {cfg.batch_axes}, "
+            f"seq_axes {cfg.seq_axes}) runs only in the dense family so "
+            "far; see ROADMAP.md")
 
 
 def maybe_remat(body: Callable, remat: str) -> Callable:
@@ -168,9 +245,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On CUDA, self-attention (Sq == Sk, ``q_offset`` 0, no softcap) runs
     the flash attention kernel, through ``KernelFn`` (backward: the dense
     math's) where autograd needs its gradient; so does a meta tensor under
-    a ``hw.cost.CostCounter``, so that the dry-run counts the card's path.  Everything else runs the dense math, in q-chunks
-    above ``_CHUNK_THRESHOLD`` score elements."""
+    a ``hw.cost.CostCounter``, so that the dry-run counts the card's
+    path.  Everything else runs the dense math, in q-chunks above
+    ``_CHUNK_THRESHOLD`` score elements.  DTensors go rank by rank
+    (``_attention_sharded``) through the same choice on their local
+    tensors."""
     sq, sk = q.shape[1], k.shape[1]
+    if is_dtensor(q):
+        return _attention_sharded(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, softcap=softcap)
     if (q.is_cuda or counts_meta(q)) and sq == sk and q_offset == 0 \
             and not softcap:
         if needs_grad(q, k, v):
@@ -180,6 +263,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention(q, k, v, causal=causal, window=window)
     return _attention_torch(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, softcap=softcap)
+
+
+def _attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       **kw) -> torch.Tensor:
+    """Attention of DTensors, rank by rank: ``attention`` on each rank's
+    own batch rows and heads, so a rank computes what one card computes
+    (on CUDA the flash kernel forward and the dense math's backward).
+    q, k and v go to one placement (Shard(0) and Shard(2) where q has
+    them, Replicate elsewhere; k and v then hold the kv heads of the
+    rank's q heads, K dividing as H does), each rank computes on its
+    local tensors, and the output keeps that placement.  Attention mixes
+    neither rows nor heads, so nothing is exchanged."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    placements = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                       for p in q.placements)
+    local = [t.redistribute(mesh, placements).to_local() for t in (q, k, v)]
+    # contiguous: the global stride given below is the contiguous one
+    o = attention(*local, **kw).contiguous()
+    shape = (*q.shape[:3], v.shape[3])
+    return DTensor.from_local(
+        o, mesh, placements, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def _attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -52,34 +52,38 @@ CONV_W = 4
 def _rec_leaves(tb: TreeBuilder, prefix: str, n: int, cfg: ModelConfig):
     d = cfg.d_model
     r = cfg.rglru_dim or cfg.d_model
-    tb.leaf(f"{prefix}/norm", (n, d), init="zeros")
-    tb.leaf(f"{prefix}/wx", (n, d, r))
-    tb.leaf(f"{prefix}/wy", (n, d, r))
-    tb.leaf(f"{prefix}/conv_w", (n, CONV_W, r))
-    tb.leaf(f"{prefix}/conv_b", (n, r), init="zeros")
-    tb.leaf(f"{prefix}/log_a", (n, r), init="zeros")
-    tb.leaf(f"{prefix}/w_gx", (n, r, r))
-    tb.leaf(f"{prefix}/w_ga", (n, r, r))
-    tb.leaf(f"{prefix}/wo", (n, r, d))
+    tb.leaf(f"{prefix}/norm", (n, d), ("layers", None), init="zeros")
+    tb.leaf(f"{prefix}/wx", (n, d, r), ("layers", "embed", "ff"))
+    tb.leaf(f"{prefix}/wy", (n, d, r), ("layers", "embed", "ff"))
+    tb.leaf(f"{prefix}/conv_w", (n, CONV_W, r), ("layers", "conv", "ff"))
+    tb.leaf(f"{prefix}/conv_b", (n, r), ("layers", "ff"), init="zeros")
+    tb.leaf(f"{prefix}/log_a", (n, r), ("layers", "ff"), init="zeros")
+    tb.leaf(f"{prefix}/w_gx", (n, r, r), ("layers", "ff", "ff"))
+    tb.leaf(f"{prefix}/w_ga", (n, r, r), ("layers", "ff", "ff"))
+    tb.leaf(f"{prefix}/wo", (n, r, d), ("layers", "ff", "embed"))
     _mlp_leaves(tb, prefix, n, cfg)
 
 
 def _attn_leaves(tb: TreeBuilder, prefix: str, n: int, cfg: ModelConfig):
     d, hd = cfg.d_model, cfg.hd
-    tb.leaf(f"{prefix}/norm", (n, d), init="zeros")
-    tb.leaf(f"{prefix}/wq", (n, d, cfg.n_heads * hd))
-    tb.leaf(f"{prefix}/wk", (n, d, cfg.n_kv_heads * hd))
-    tb.leaf(f"{prefix}/wv", (n, d, cfg.n_kv_heads * hd))
-    tb.leaf(f"{prefix}/wo", (n, cfg.n_heads * hd, d))
+    tb.leaf(f"{prefix}/norm", (n, d), ("layers", None), init="zeros")
+    tb.leaf(f"{prefix}/wq", (n, d, cfg.n_heads * hd),
+            ("layers", "embed", "heads"))
+    tb.leaf(f"{prefix}/wk", (n, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf(f"{prefix}/wv", (n, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf(f"{prefix}/wo", (n, cfg.n_heads * hd, d),
+            ("layers", "heads", "embed"))
     _mlp_leaves(tb, prefix, n, cfg)
 
 
 def _mlp_leaves(tb: TreeBuilder, prefix: str, n: int, cfg: ModelConfig):
     d = cfg.d_model
-    tb.leaf(f"{prefix}/mlp_norm", (n, d), init="zeros")
-    tb.leaf(f"{prefix}/w_gate", (n, d, cfg.d_ff))
-    tb.leaf(f"{prefix}/w_up", (n, d, cfg.d_ff))
-    tb.leaf(f"{prefix}/w_down", (n, cfg.d_ff, d))
+    tb.leaf(f"{prefix}/mlp_norm", (n, d), ("layers", None), init="zeros")
+    tb.leaf(f"{prefix}/w_gate", (n, d, cfg.d_ff), ("layers", "embed", "ff"))
+    tb.leaf(f"{prefix}/w_up", (n, d, cfg.d_ff), ("layers", "embed", "ff"))
+    tb.leaf(f"{prefix}/w_down", (n, cfg.d_ff, d), ("layers", "ff", "embed"))
 
 
 def n_supers(cfg: ModelConfig) -> tuple[int, int]:
@@ -87,21 +91,34 @@ def n_supers(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // per, cfg.n_layers % per
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> dict:
-    """Same paths, shapes and init laws as the reference's ``_build``."""
+def _build(cfg: ModelConfig, generator: torch.Generator | None,
+           device: torch.device) -> TreeBuilder:
+    """Same paths, shapes, logical axes and init laws as the reference's
+    ``_build``."""
     tb = TreeBuilder(cfg, device, generator)
     ns, tail = n_supers(cfg)
-    tb.leaf("embed/table", (cfg.padded_vocab, cfg.d_model), scale=0.02)
+    tb.leaf("embed/table", (cfg.padded_vocab, cfg.d_model),
+            ("vocab", "table_d"), scale=0.02)
     _rec_leaves(tb, "supers/rec1", ns, cfg)
     _rec_leaves(tb, "supers/rec2", ns, cfg)
     _attn_leaves(tb, "supers/attn", ns, cfg)
     if tail:
         _rec_leaves(tb, "tail", tail, cfg)
-    tb.leaf("final_norm", (cfg.d_model,), init="zeros")
+    tb.leaf("final_norm", (cfg.d_model,), (None,), init="zeros")
     if not cfg.tie_embeddings:
-        tb.leaf("unembed", (cfg.d_model, cfg.padded_vocab), scale=0.02)
-    return tb.build()
+        tb.leaf("unembed", (cfg.d_model, cfg.padded_vocab),
+                ("embed", "vocab"), scale=0.02)
+    return tb
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None,
+         device: torch.device) -> dict:
+    return _build(cfg, generator, device).build()
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of ``init``'s params (built on ``meta``)."""
+    return _build(cfg, None, torch.device("meta")).specs
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +232,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             self_attn: L.SelfAttention | None = None,
             rglru_fn: L.RglruScan | None = None):
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss)."""
+    L.require_unsharded(cfg, "hybrid")
     x, _, _ = _trunk(cfg, params, batch["tokens"], self_attn, rglru_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux

@@ -52,9 +52,10 @@ WkvFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 # parameters
 # ---------------------------------------------------------------------------
 
-def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> dict:
-    """Same paths, shapes and init laws as the reference's ``_build``."""
+def _build(cfg: ModelConfig, generator: torch.Generator | None,
+           device: torch.device) -> TreeBuilder:
+    """Same paths, shapes, logical axes and init laws as the reference's
+    ``_build``."""
     tb = TreeBuilder(cfg, device, generator)
     d, nl = cfg.d_model, cfg.n_layers
     n_heads = cfg.n_heads
@@ -63,30 +64,45 @@ def init(cfg: ModelConfig, generator: torch.Generator | None,
         raise ValueError(f"rwkv6: d_model {d} is not a multiple of "
                          f"n_heads {n_heads}")
 
-    tb.leaf("embed/table", (cfg.padded_vocab, d), scale=0.02)
+    tb.leaf("embed/table", (cfg.padded_vocab, d), ("vocab", "table_d"),
+            scale=0.02)
     # time-mix
-    tb.leaf("layers/tm_norm", (nl, d), init="zeros")
-    tb.leaf("layers/tm_mu", (nl, 5, d), init="zeros")
-    tb.leaf("layers/tm_lora_a", (nl, d, 5 * LORA_R))
-    tb.leaf("layers/tm_lora_b", (nl, 5, LORA_R, d), init="zeros")
+    tb.leaf("layers/tm_norm", (nl, d), ("layers", None), init="zeros")
+    tb.leaf("layers/tm_mu", (nl, 5, d), ("layers", None, None), init="zeros")
+    tb.leaf("layers/tm_lora_a", (nl, d, 5 * LORA_R),
+            ("layers", "embed", None))
+    tb.leaf("layers/tm_lora_b", (nl, 5, LORA_R, d),
+            ("layers", None, None, None), init="zeros")
     for name in ("wr", "wk", "wv", "wg"):
-        tb.leaf(f"layers/{name}", (nl, d, d))
-    tb.leaf("layers/wo", (nl, d, d))
-    tb.leaf("layers/w0", (nl, d), init="zeros")
-    tb.leaf("layers/w_lora_a", (nl, d, LORA_R))
-    tb.leaf("layers/w_lora_b", (nl, LORA_R, d), init="zeros")
-    tb.leaf("layers/u", (nl, n_heads, hd), init="zeros")
-    tb.leaf("layers/ln_x", (nl, d), init="ones")
+        tb.leaf(f"layers/{name}", (nl, d, d), ("layers", "embed", "heads"))
+    tb.leaf("layers/wo", (nl, d, d), ("layers", "heads", "embed"))
+    tb.leaf("layers/w0", (nl, d), ("layers", None), init="zeros")
+    tb.leaf("layers/w_lora_a", (nl, d, LORA_R), ("layers", "embed", None))
+    tb.leaf("layers/w_lora_b", (nl, LORA_R, d), ("layers", None, None),
+            init="zeros")
+    tb.leaf("layers/u", (nl, n_heads, hd), ("layers", "heads", None),
+            init="zeros")
+    tb.leaf("layers/ln_x", (nl, d), ("layers", None), init="ones")
     # channel-mix
-    tb.leaf("layers/cm_norm", (nl, d), init="zeros")
-    tb.leaf("layers/cm_mu", (nl, 2, d), init="zeros")
-    tb.leaf("layers/cm_wk", (nl, d, cfg.d_ff))
-    tb.leaf("layers/cm_wv", (nl, cfg.d_ff, d))
-    tb.leaf("layers/cm_wr", (nl, d, d))
+    tb.leaf("layers/cm_norm", (nl, d), ("layers", None), init="zeros")
+    tb.leaf("layers/cm_mu", (nl, 2, d), ("layers", None, None), init="zeros")
+    tb.leaf("layers/cm_wk", (nl, d, cfg.d_ff), ("layers", "embed", "ff"))
+    tb.leaf("layers/cm_wv", (nl, cfg.d_ff, d), ("layers", "ff", "embed"))
+    tb.leaf("layers/cm_wr", (nl, d, d), ("layers", "embed", "embed"))
 
-    tb.leaf("final_norm", (d,), init="zeros")
-    tb.leaf("unembed", (d, cfg.padded_vocab), scale=0.02)
-    return tb.build()
+    tb.leaf("final_norm", (d,), (None,), init="zeros")
+    tb.leaf("unembed", (d, cfg.padded_vocab), ("embed", "vocab"), scale=0.02)
+    return tb
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None,
+         device: torch.device) -> dict:
+    return _build(cfg, generator, device).build()
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of ``init``'s params (built on ``meta``)."""
+    return _build(cfg, None, torch.device("meta")).specs
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +209,7 @@ def _trunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             wkv_fn: WkvFn | None = None):
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss)."""
+    L.require_unsharded(cfg, "ssm")
     x, _ = _trunk(cfg, params, batch["tokens"], wkv_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux

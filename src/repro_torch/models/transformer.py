@@ -35,40 +35,61 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
+from repro_torch.models.common import (ModelConfig, TreeBuilder, is_dtensor,
+                                       unstack)
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
-def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> dict:
-    """Same paths, shapes and init laws as the reference's ``_build``."""
+def _build(cfg: ModelConfig, generator: torch.Generator | None,
+           device: torch.device) -> TreeBuilder:
+    """Same paths, shapes, logical axes and init laws as the reference's
+    ``_build``."""
     tb = TreeBuilder(cfg, device, generator)
     d, hd = cfg.d_model, cfg.hd
     nl = cfg.n_layers
-    tb.leaf("embed/table", (cfg.padded_vocab, d), scale=0.02)
-    tb.leaf("layers/attn_norm", (nl, d), init="zeros")
-    tb.leaf("layers/mlp_norm", (nl, d), init="zeros")
-    tb.leaf("layers/wq", (nl, d, cfg.n_heads * hd))
-    tb.leaf("layers/wk", (nl, d, cfg.n_kv_heads * hd))
-    tb.leaf("layers/wv", (nl, d, cfg.n_kv_heads * hd))
-    tb.leaf("layers/wo", (nl, cfg.n_heads * hd, d))
+    tb.leaf("embed/table", (cfg.padded_vocab, d), ("vocab", "table_d"),
+            scale=0.02)
+    tb.leaf("layers/attn_norm", (nl, d), ("layers", None), init="zeros")
+    tb.leaf("layers/mlp_norm", (nl, d), ("layers", None), init="zeros")
+    tb.leaf("layers/wq", (nl, d, cfg.n_heads * hd),
+            ("layers", "embed", "heads"))
+    tb.leaf("layers/wk", (nl, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf("layers/wv", (nl, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf("layers/wo", (nl, cfg.n_heads * hd, d),
+            ("layers", "heads", "embed"))
     if cfg.moe_experts:
         e = cfg.moe_experts
-        tb.leaf("layers/router", (nl, d, e))
-        tb.leaf("layers/w_gate", (nl, e, d, cfg.d_ff))
-        tb.leaf("layers/w_up", (nl, e, d, cfg.d_ff))
-        tb.leaf("layers/w_down", (nl, e, cfg.d_ff, d))
+        tb.leaf("layers/router", (nl, d, e), ("layers", "embed", None))
+        tb.leaf("layers/w_gate", (nl, e, d, cfg.d_ff),
+                ("layers", "expert", "embed", "ff"))
+        tb.leaf("layers/w_up", (nl, e, d, cfg.d_ff),
+                ("layers", "expert", "embed", "ff"))
+        tb.leaf("layers/w_down", (nl, e, cfg.d_ff, d),
+                ("layers", "expert", "ff", "embed"))
     else:
-        tb.leaf("layers/w_gate", (nl, d, cfg.d_ff))
-        tb.leaf("layers/w_up", (nl, d, cfg.d_ff))
-        tb.leaf("layers/w_down", (nl, cfg.d_ff, d))
-    tb.leaf("final_norm", (d,), init="zeros")
+        tb.leaf("layers/w_gate", (nl, d, cfg.d_ff), ("layers", "embed", "ff"))
+        tb.leaf("layers/w_up", (nl, d, cfg.d_ff), ("layers", "embed", "ff"))
+        tb.leaf("layers/w_down", (nl, cfg.d_ff, d), ("layers", "ff", "embed"))
+    tb.leaf("final_norm", (d,), (None,), init="zeros")
     if not cfg.tie_embeddings:
-        tb.leaf("unembed", (d, cfg.padded_vocab), scale=0.02)
-    return tb.build()
+        tb.leaf("unembed", (d, cfg.padded_vocab), ("embed", "vocab"),
+                scale=0.02)
+    return tb
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None,
+         device: torch.device) -> dict:
+    return _build(cfg, generator, device).build()
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of ``init``'s params (built on ``meta``)."""
+    return _build(cfg, None, torch.device("meta")).specs
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +129,17 @@ def _mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor
 
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (x (B,S,D) in the activation dtype, RoPE cos, sin)."""
-    x = params["embed"]["table"][tokens].to(cfg.activation_dtype)
+    """tokens (B,S) -> (x (B,S,D) in the activation dtype, RoPE cos, sin).
+    A sharded table is read by ``F.embedding`` (the same rows; DTensor
+    shards its backward as the table), and the partial rows of a
+    vocab-sharded table are summed at once, so that a remat recompute
+    of the first layer reads a plain placement."""
+    table = params["embed"]["table"]
+    if is_dtensor(table):
+        x = L.reduce_partial(F.embedding(tokens, table))
+    else:
+        x = table[tokens]
+    x = x.to(cfg.activation_dtype)
     cos, sin = L.rope_angles(torch.arange(tokens.shape[1],
                                           device=tokens.device),
                              cfg.hd, cfg.rope_theta)
@@ -121,25 +151,39 @@ def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                    self_attn: L.SelfAttention
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A block's first half: self-attention and its residual.  x: (B,S,D).
-    Returns (x', k, v)."""
+    Returns (x', k, v).  With ``cfg.seq_axes`` (sequence parallelism, on
+    DTensors) the norm's output is gathered into the seq-unsharded
+    tensor-parallel region and the block's output goes back to the
+    seq-sharded boundary before the residual add, as the reference's
+    ``_layer``."""
     dt = x.dtype
     b, s, _ = x.shape
     hd = cfg.hd
     h = _norm(cfg, x, lp["attn_norm"])
+    if cfg.seq_axes:
+        h = L.constrain_batch(h, cfg.batch_axes, ())   # gather into TP
     q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
     k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
     v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
-    return x + o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt), k, v
+    o = o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
+    if cfg.seq_axes:
+        o = L.seq_boundary(o, cfg.batch_axes, cfg.seq_axes)  # RS back
+    return x + o, k, v
 
 
 def mlp_half(cfg: ModelConfig, lp: dict, x: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """A block's second half: the MLP (or MoE block) and its residual.
     Returns (x', aux), aux None in a dense block."""
-    m, aux = _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm"]))
+    h = _norm(cfg, x, lp["mlp_norm"])
+    if cfg.seq_axes:
+        h = L.constrain_batch(h, cfg.batch_axes, ())
+    m, aux = _mlp(cfg, lp, h)
+    if cfg.seq_axes:
+        m = L.seq_boundary(m, cfg.batch_axes, cfg.seq_axes)
     return x + m, aux
 
 
@@ -156,7 +200,10 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                       torch.Tensor | None]:
     """One transformer block. x: (B,S,D). Returns (x', k, v, aux), aux
-    None in a dense block."""
+    None in a dense block.  With ``cfg.batch_axes`` or ``cfg.seq_axes``
+    the residual stream is pinned at the layer boundary
+    (``layers.seq_boundary``), as the reference's ``_layer``."""
+    x = L.seq_boundary(x, cfg.batch_axes, cfg.seq_axes)
     x, k, v = attention_half(cfg, lp, x, cos, sin, self_attn)
     x, aux = mlp_half(cfg, lp, x)
     return x, k, v, aux
@@ -168,6 +215,8 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss[, kv]).
 
     ``last_only``: unembed only the final position (prefill path)."""
+    if cfg.moe_experts:
+        L.require_unsharded(cfg, "moe")
     x, cos, sin = embed(cfg, params, batch["tokens"])
     attn = self_attn or L.attention
     layer = L.maybe_remat(_layer, cfg.remat)

@@ -47,36 +47,63 @@ def layout(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // per, per - 1
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> dict:
-    """Same paths, shapes and init laws as the reference's ``_build``."""
+def _build(cfg: ModelConfig, generator: torch.Generator | None,
+           device: torch.device) -> TreeBuilder:
+    """Same paths, shapes, logical axes and init laws as the reference's
+    ``_build``."""
     tb = TreeBuilder(cfg, device, generator)
     ns, sps = layout(cfg)
     d, hd = cfg.d_model, cfg.hd
-    tb.leaf("embed/table", (cfg.padded_vocab, d), scale=0.02)
-    tb.leaf("supers/self/attn_norm", (ns, sps, d), init="zeros")
-    tb.leaf("supers/self/mlp_norm", (ns, sps, d), init="zeros")
-    tb.leaf("supers/self/wq", (ns, sps, d, cfg.n_heads * hd))
-    tb.leaf("supers/self/wk", (ns, sps, d, cfg.n_kv_heads * hd))
-    tb.leaf("supers/self/wv", (ns, sps, d, cfg.n_kv_heads * hd))
-    tb.leaf("supers/self/wo", (ns, sps, cfg.n_heads * hd, d))
-    tb.leaf("supers/self/w_gate", (ns, sps, d, cfg.d_ff))
-    tb.leaf("supers/self/w_up", (ns, sps, d, cfg.d_ff))
-    tb.leaf("supers/self/w_down", (ns, sps, cfg.d_ff, d))
-    tb.leaf("supers/cross/norm", (ns, d), init="zeros")
-    tb.leaf("supers/cross/wq", (ns, d, cfg.n_heads * hd))
-    tb.leaf("supers/cross/wk", (ns, d, cfg.n_kv_heads * hd))
-    tb.leaf("supers/cross/wv", (ns, d, cfg.n_kv_heads * hd))
-    tb.leaf("supers/cross/wo", (ns, cfg.n_heads * hd, d))
-    tb.leaf("supers/cross/gate_attn", (ns,), init="zeros")
-    tb.leaf("supers/cross/gate_mlp", (ns,), init="zeros")
-    tb.leaf("supers/cross/mlp_norm", (ns, d), init="zeros")
-    tb.leaf("supers/cross/w_gate", (ns, d, cfg.d_ff))
-    tb.leaf("supers/cross/w_up", (ns, d, cfg.d_ff))
-    tb.leaf("supers/cross/w_down", (ns, cfg.d_ff, d))
-    tb.leaf("final_norm", (d,), init="zeros")
-    tb.leaf("unembed", (d, cfg.padded_vocab), scale=0.02)
-    return tb.build()
+    tb.leaf("embed/table", (cfg.padded_vocab, d), ("vocab", "table_d"),
+            scale=0.02)
+    tb.leaf("supers/self/attn_norm", (ns, sps, d), ("layers", "layers", None),
+            init="zeros")
+    tb.leaf("supers/self/mlp_norm", (ns, sps, d), ("layers", "layers", None),
+            init="zeros")
+    tb.leaf("supers/self/wq", (ns, sps, d, cfg.n_heads * hd),
+            ("layers", "layers", "embed", "heads"))
+    tb.leaf("supers/self/wk", (ns, sps, d, cfg.n_kv_heads * hd),
+            ("layers", "layers", "embed", "kv"))
+    tb.leaf("supers/self/wv", (ns, sps, d, cfg.n_kv_heads * hd),
+            ("layers", "layers", "embed", "kv"))
+    tb.leaf("supers/self/wo", (ns, sps, cfg.n_heads * hd, d),
+            ("layers", "layers", "heads", "embed"))
+    tb.leaf("supers/self/w_gate", (ns, sps, d, cfg.d_ff),
+            ("layers", "layers", "embed", "ff"))
+    tb.leaf("supers/self/w_up", (ns, sps, d, cfg.d_ff),
+            ("layers", "layers", "embed", "ff"))
+    tb.leaf("supers/self/w_down", (ns, sps, cfg.d_ff, d),
+            ("layers", "layers", "ff", "embed"))
+    tb.leaf("supers/cross/norm", (ns, d), ("layers", None), init="zeros")
+    tb.leaf("supers/cross/wq", (ns, d, cfg.n_heads * hd),
+            ("layers", "embed", "heads"))
+    tb.leaf("supers/cross/wk", (ns, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf("supers/cross/wv", (ns, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf("supers/cross/wo", (ns, cfg.n_heads * hd, d),
+            ("layers", "heads", "embed"))
+    tb.leaf("supers/cross/gate_attn", (ns,), ("layers",), init="zeros")
+    tb.leaf("supers/cross/gate_mlp", (ns,), ("layers",), init="zeros")
+    tb.leaf("supers/cross/mlp_norm", (ns, d), ("layers", None), init="zeros")
+    tb.leaf("supers/cross/w_gate", (ns, d, cfg.d_ff),
+            ("layers", "embed", "ff"))
+    tb.leaf("supers/cross/w_up", (ns, d, cfg.d_ff), ("layers", "embed", "ff"))
+    tb.leaf("supers/cross/w_down", (ns, cfg.d_ff, d),
+            ("layers", "ff", "embed"))
+    tb.leaf("final_norm", (d,), (None,), init="zeros")
+    tb.leaf("unembed", (d, cfg.padded_vocab), ("embed", "vocab"), scale=0.02)
+    return tb
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None,
+         device: torch.device) -> dict:
+    return _build(cfg, generator, device).build()
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of ``init``'s params (built on ``meta``)."""
+    return _build(cfg, None, torch.device("meta")).specs
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +178,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             self_attn: L.SelfAttention | None = None):
     """batch: tokens (B,S) and frontend (B, T_img, d_model).  Returns
     (logits, aux), aux a float32 zero."""
+    L.require_unsharded(cfg, "vlm")
     img = batch["frontend"].to(cfg.activation_dtype)
     x, _ = _run(cfg, params, batch["tokens"], img, self_attn or L.attention,
                 cfg.remat)

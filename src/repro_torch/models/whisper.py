@@ -41,38 +41,56 @@ N_POSITIONS = 4096     # rows of the decoder's learned position table
 
 def _attn_leaves(tb: TreeBuilder, prefix: str, n: int, cfg: ModelConfig):
     d, hd = cfg.d_model, cfg.hd
-    tb.leaf(f"{prefix}/wq", (n, d, cfg.n_heads * hd))
-    tb.leaf(f"{prefix}/wk", (n, d, cfg.n_kv_heads * hd))
-    tb.leaf(f"{prefix}/wv", (n, d, cfg.n_kv_heads * hd))
-    tb.leaf(f"{prefix}/wo", (n, cfg.n_heads * hd, d))
+    tb.leaf(f"{prefix}/wq", (n, d, cfg.n_heads * hd),
+            ("layers", "embed", "heads"))
+    tb.leaf(f"{prefix}/wk", (n, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf(f"{prefix}/wv", (n, d, cfg.n_kv_heads * hd),
+            ("layers", "embed", "kv"))
+    tb.leaf(f"{prefix}/wo", (n, cfg.n_heads * hd, d),
+            ("layers", "heads", "embed"))
 
 
 def _mlp_leaves(tb: TreeBuilder, prefix: str, n: int, cfg: ModelConfig):
-    tb.leaf(f"{prefix}/w_up", (n, cfg.d_model, cfg.d_ff))
-    tb.leaf(f"{prefix}/w_down", (n, cfg.d_ff, cfg.d_model))
+    tb.leaf(f"{prefix}/w_up", (n, cfg.d_model, cfg.d_ff),
+            ("layers", "embed", "ff"))
+    tb.leaf(f"{prefix}/w_down", (n, cfg.d_ff, cfg.d_model),
+            ("layers", "ff", "embed"))
+
+
+def _build(cfg: ModelConfig, generator: torch.Generator | None,
+           device: torch.device) -> TreeBuilder:
+    """Same paths, shapes, logical axes and init laws as the reference's
+    ``_build``."""
+    tb = TreeBuilder(cfg, device, generator)
+    d = cfg.d_model
+    ne, nd = cfg.encoder_layers, cfg.n_layers
+    tb.leaf("embed/table", (cfg.padded_vocab, d), ("vocab", "table_d"),
+            scale=0.02)
+    tb.leaf("pos_embed", (N_POSITIONS, d), (None, "embed"), scale=0.01)
+    tb.leaf("enc/attn_norm", (ne, d), ("layers", None), init="ones")
+    tb.leaf("enc/mlp_norm", (ne, d), ("layers", None), init="ones")
+    _attn_leaves(tb, "enc", ne, cfg)
+    _mlp_leaves(tb, "enc", ne, cfg)
+    tb.leaf("enc_final_norm", (d,), (None,), init="ones")
+    tb.leaf("dec/self_norm", (nd, d), ("layers", None), init="ones")
+    tb.leaf("dec/cross_norm", (nd, d), ("layers", None), init="ones")
+    tb.leaf("dec/mlp_norm", (nd, d), ("layers", None), init="ones")
+    _attn_leaves(tb, "dec/self", nd, cfg)
+    _attn_leaves(tb, "dec/cross", nd, cfg)
+    _mlp_leaves(tb, "dec", nd, cfg)
+    tb.leaf("final_norm", (d,), (None,), init="ones")
+    return tb
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None,
          device: torch.device) -> dict:
-    """Same paths, shapes and init laws as the reference's ``_build``."""
-    tb = TreeBuilder(cfg, device, generator)
-    d = cfg.d_model
-    ne, nd = cfg.encoder_layers, cfg.n_layers
-    tb.leaf("embed/table", (cfg.padded_vocab, d), scale=0.02)
-    tb.leaf("pos_embed", (N_POSITIONS, d), scale=0.01)
-    tb.leaf("enc/attn_norm", (ne, d), init="ones")
-    tb.leaf("enc/mlp_norm", (ne, d), init="ones")
-    _attn_leaves(tb, "enc", ne, cfg)
-    _mlp_leaves(tb, "enc", ne, cfg)
-    tb.leaf("enc_final_norm", (d,), init="ones")
-    tb.leaf("dec/self_norm", (nd, d), init="ones")
-    tb.leaf("dec/cross_norm", (nd, d), init="ones")
-    tb.leaf("dec/mlp_norm", (nd, d), init="ones")
-    _attn_leaves(tb, "dec/self", nd, cfg)
-    _attn_leaves(tb, "dec/cross", nd, cfg)
-    _mlp_leaves(tb, "dec", nd, cfg)
-    tb.leaf("final_norm", (d,), init="ones")
-    return tb.build()
+    return _build(cfg, generator, device).build()
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of ``init``'s params (built on ``meta``)."""
+    return _build(cfg, None, torch.device("meta")).specs
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +181,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             self_attn: L.SelfAttention | None = None):
     """batch: tokens (B,S_dec) and frontend (B,T_enc,d).  Returns (logits,
     aux), aux a float32 zero."""
+    L.require_unsharded(cfg, "audio")
     tokens = batch["tokens"]
     attn = self_attn or L.attention
     enc = encode(cfg, params, batch["frontend"], self_attn=attn)

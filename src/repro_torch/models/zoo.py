@@ -42,6 +42,12 @@ def abstract(cfg: ModelConfig) -> dict:
     return init(cfg, device="meta")
 
 
+def specs(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of the params: the same structure, one tuple
+    of logical axis names (or None) a leaf, one entry a dim."""
+    return module_for(cfg).specs(cfg)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda") -> dict:
     """A zero decode cache for ``batch`` rows of up to ``max_len``

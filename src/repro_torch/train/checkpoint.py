@@ -21,6 +21,13 @@ string says "bfloat16".  The port writes a bf16 tensor's bits the same
 way (its ``uint16`` view, stored as ``|V2``) and, on restore, reads any
 leaf whose manifest dtype is "bfloat16" back through a ``uint16`` view,
 so neither direction needs ``ml_dtypes``.
+
+Sharded state (DTensors): ``save`` gathers each leaf's full value
+(``full_tensor``, a collective every rank of the mesh joins) and rank 0
+writes; the save is then synchronous and ends in a barrier, so that every
+rank may restore right after it.  ``restore(shardings=tree)`` places each
+leaf on the mesh and placements of its ``sharding.NamedSharding``: saved
+on one mesh shape, a state restores onto another (elastic restart).
 """
 
 from __future__ import annotations
@@ -34,14 +41,17 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import is_dtensor, tree_map
 
 SEP = "/"
 _BF16 = "bfloat16"
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as the numpy array the reference would save for it."""
+    """A tensor as the numpy array the reference would save for it (a
+    DTensor's full value)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -56,9 +66,9 @@ def _tensor(a: np.ndarray, dtype_name: str, device: torch.device
             ) -> torch.Tensor:
     """A restored leaf as a tensor on ``device``, bfloat16 by its bits."""
     if dtype_name == _BF16:
-        bits = torch.from_numpy(np.array(a).view(np.int16))
+        bits = torch.from_numpy(np.asarray(a).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.asarray(a)).to(device)
 
 
 def _flatten(tree, prefix="") -> dict:
@@ -84,15 +94,16 @@ def _unflatten(flat: dict) -> dict:
 
 class CheckpointManager:
     """Saves to and restores from ``directory``; a restored state's
-    tensors land on ``device`` (the device the train state lives on), so
-    a recovery loop that restores without naming one resumes where it
-    ran."""
+    tensors land on ``device`` (the device the train state lives on), or,
+    with ``shardings``, on their meshes, so a recovery loop that restores
+    without naming either resumes where it ran."""
 
     def __init__(self, directory: str, keep_last_k: int = 3,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu", shardings=None):
         self.directory = directory
         self.keep = keep_last_k
         self.device = torch.device(device)
+        self.shardings = shardings
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
 
@@ -100,10 +111,18 @@ class CheckpointManager:
     def save(self, step: int, state: dict, extra: dict | None = None,
              block: bool = False) -> None:
         """Async save.  Copies the state to the host synchronously (the
-        copy waits for the device), writes on a background thread."""
+        copy waits for the device), writes on a background thread.  A
+        sharded state is gathered, written by rank 0 alone, and saved
+        synchronously up to a barrier of every rank."""
         self.wait()
         flat = {k: _host(v) for k, v in _flatten(state).items()}
         extra = dict(extra or {})
+        sharded = any(is_dtensor(v) for v in _flatten(state).values())
+        if sharded:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return
 
         def write():
             tag = f"step_{step:08d}"
@@ -135,8 +154,10 @@ class CheckpointManager:
 
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
-        if block:
+        if block or sharded:
             self.wait()
+        if sharded:
+            dist.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -164,13 +185,16 @@ class CheckpointManager:
             return json.load(f)["step"]
 
     def restore(self, step: int | None = None,
-                device: str | torch.device | None = None
+                device: str | torch.device | None = None, shardings=None
                 ) -> tuple[dict, dict, int] | None:
         """Returns (state, extra, step) with the state's tensors on
         ``device`` (the manager's own by default), or None if there is no
-        checkpoint.  A save still being written lands first, so a restore
-        right after ``save`` (``run_with_recovery`` after a failure) reads
-        it back."""
+        checkpoint.  ``shardings`` (the manager's own by default): a tree
+        of ``sharding.NamedSharding`` of the state's structure; each leaf
+        becomes a DTensor on its mesh and placements, whatever mesh the
+        state was saved from.  A save still being written lands first, so
+        a restore right after ``save`` (``run_with_recovery`` after a
+        failure) reads it back."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -182,7 +206,16 @@ class CheckpointManager:
         with np.load(os.path.join(base, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
         dev = self.device if device is None else torch.device(device)
-        state = tree_map(
-            lambda path, a: _tensor(a, manifest["paths"][path][1], dev),
-            _unflatten(flat))
+        shardings = self.shardings if shardings is None else shardings
+        if shardings is not None:
+            from repro_torch.sharding import distribute_tree
+            state = tree_map(
+                lambda path, a: _tensor(a, manifest["paths"][path][1],
+                                        torch.device("cpu")),
+                _unflatten(flat))
+            state = distribute_tree(state, shardings)
+        else:
+            state = tree_map(
+                lambda path, a: _tensor(a, manifest["paths"][path][1], dev),
+                _unflatten(flat))
         return state, manifest.get("extra", {}), manifest["step"]

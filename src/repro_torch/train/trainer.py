@@ -17,7 +17,15 @@ Port of ``repro.train.trainer``.  ``make_train_step`` builds the
 The train state is a plain dict {params, opt, error?} so checkpointing
 stays structural.  The step returns a new state and leaves the old one as
 it is; the metrics are 0-d tensors on the params' device (no host sync).
-Sharding of the batch and of the state waits for the multi-device slice.
+
+Sharded state: a state placed on a mesh by ``state_specs`` and a plan
+(``sharding.distribute_tree``) holds DTensors, and the step runs on them
+under ``implicit_replication`` (the few plain tensors it makes, such as
+the loss sum's zero, count as replicated).  With ``batch_axes`` each
+microbatch's batch dim is sharded over those mesh axes.  Every gradient
+is redistributed to its parameter's placements before it is summed and
+before the optimizer (the data-parallel reduce-scatter), so AdamW's
+moments keep the parameters' placements.
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.models import zoo
-from repro_torch.models.common import (ModelConfig, Params, torch_dtype,
-                                       tree_leaves, tree_map)
+from repro_torch.models.common import (ModelConfig, Params, Specs,
+                                       is_dtensor, torch_dtype, tree_leaves,
+                                       tree_map)
 from repro_torch.optim import (AdamWConfig, CompressionConfig,
                                abstract_opt_state, adamw_update, compress,
                                init_error_state, init_opt_state)
@@ -77,6 +86,53 @@ def abstract_state(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
     return state
 
 
+def state_specs(cfg: ModelConfig, tcfg: TrainConfig) -> Specs:
+    """Logical-axes tree matching ``init_state``'s structure."""
+    pspecs = zoo.specs(cfg)
+    out = {"params": pspecs,
+           "opt": {"mu": pspecs, "nu": pspecs, "step": ()}}
+    if _has_error(tcfg):
+        out["error"] = pspecs
+    return out
+
+
+def _dtensor_mesh(tree: Params):
+    """The mesh of the tree's DTensors, or None for plain tensors."""
+    for t in tree_leaves(tree):
+        if is_dtensor(t):
+            return t.device_mesh
+    return None
+
+
+def _shard_batch(x: torch.Tensor, mesh, batch_axes: tuple[str, ...]):
+    """(n_micro, B/n_micro, ...) -> a DTensor with dim 1 (each
+    microbatch's batch dim) sharded over ``batch_axes``.  ``x`` is the
+    same full batch on every rank: each keeps its slice."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    names = tuple(mesh.mesh_dim_names)
+    unknown = [a for a in batch_axes if a not in names]
+    if unknown:
+        raise ValueError(f"batch_axes {unknown} are not axes of the "
+                         f"mesh {names}")
+    placements = tuple(Shard(1) if n in batch_axes else Replicate()
+                       for n in names)
+    return distribute_tensor(x, mesh, placements, src_data_rank=None)
+
+
+def _like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient with its parameter's placements (a reduce-scatter of a
+    partial sum, a slice of a replicated one); plain tensors as they
+    are."""
+    if is_dtensor(p) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def _unflatten_like(tree: Params, leaves) -> Params:
     it = iter(leaves)
     return tree_map(lambda _, __: next(it), tree)
@@ -88,11 +144,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     """``batch`` is a dict of (B, ...) tensors ("tokens", "targets",
     optionally "mask") on the params' device, B a multiple of
     ``tcfg.microbatches``.  Metrics: loss, lr, grad_norm (and
-    compression_ratio with compression)."""
-    if batch_axes:
-        raise NotImplementedError(
-            "make_train_step: batch_axes (a sharded batch) waits for the "
-            "port's multi-device slice; see ROADMAP.md")
+    compression_ratio with compression), plain tensors.
+
+    ``batch_axes``: mesh axes the batch dim is sharded over (the state
+    must then be DTensors on that mesh); each microbatch is sharded
+    explicitly, as the reference constrains its microbatched tree, since
+    the (B,) -> (n_micro, B/n) reshape would otherwise leave the batch
+    whole on every rank."""
     n_micro = tcfg.microbatches
     # per-LAYER remat: checkpointing the whole loss would still keep every
     # layer's backward residuals
@@ -101,6 +159,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     acc_dt = torch_dtype(tcfg.accum_dtype)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        mesh = _dtensor_mesh(state["params"])
+        if mesh is None:
+            if batch_axes:
+                raise ValueError("make_train_step: batch_axes needs a "
+                                 "state placed on a mesh (DTensors)")
+            return _step(state, batch, None)
+        if "error" in state:
+            raise NotImplementedError(
+                "make_train_step: gradient compression on a sharded state")
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            new_state, metrics = _step(state, batch, mesh)
+        return new_state, {k: _plain(v) for k, v in metrics.items()}
+
+    def _step(state: dict, batch: dict, mesh) -> tuple[dict, dict]:
         params = state["params"]
         leaves = tree_map(lambda _, p: p.detach().requires_grad_(True),
                           params)
@@ -114,7 +188,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             return x.reshape(n_micro, b // n_micro, *x.shape[1:])
 
         micro = {k: reshape_micro(v) for k, v in batch.items()}
+        if batch_axes:
+            micro = {k: _shard_batch(v, mesh, tuple(batch_axes))
+                     for k, v in micro.items()}
         gsum = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                if mesh is None else torch.zeros_like(p, dtype=acc_dt)
                 for p in flat]
         lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
         for i in range(n_micro):
@@ -124,8 +202,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                         materialize_grads=True)
             with torch.no_grad():
-                for acc, g in zip(gsum, grads):
-                    acc.add_(g.to(acc_dt))
+                for acc, g, p in zip(gsum, grads, flat):
+                    acc.add_(_like_param(g, p).to(acc_dt))
                 lsum = lsum + loss.detach()
             del loss, grads
         with torch.no_grad():

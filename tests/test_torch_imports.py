@@ -34,5 +34,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     for name in ("repro_torch.launch.pool", "repro_torch.launch.service",
                  "repro_torch.launch.cluster", "repro_torch.service.daemon",
                  "repro_torch.cluster.pool", "repro_torch.multitenant.pool",
-                 "repro_torch.obs.perfetto", "repro_torch.core.runtime"):
+                 "repro_torch.obs.perfetto", "repro_torch.core.runtime",
+                 "repro_torch.core.autotune", "repro_torch.launch.mesh",
+                 "repro_torch.sharding", "repro_torch.sharding.specs",
+                 "repro_torch.sharding.collective_matmul"):
         assert name in report["imported"]
