@@ -195,7 +195,22 @@ Phases, one JSON line each:
              the sharded state read back bit for bit, and
              ``ring_ag_matmul`` on the olmo-1b MLP up-projection
              (8192x2048 @ 2048x8192, bf16) against ``torch.matmul``, bit
-             for bit, both timed by CUDA events;
+             for bit, both timed by CUDA events; then every other family
+             on the same mesh, each run unsharded and then sharded from
+             the same seed in the child (a ``multidevice_family`` line
+             each): the train_moe phase's mixtral-8x7b step (1 layer,
+             B=2, S=2048, 2 steps; experts on "model"), and prefill plus
+             8 decode steps of 4 rows, the cache placed by
+             ``serving.kvcache.cache_shardings`` (``replicated-heads`` at
+             degree 1), for olmo-1b, recurrentgemma-2b (prompts of 2600,
+             past its window), rwkv6-1.6b, whisper-small (a 1500-frame
+             frontend) and llama-3.2-vision-11b cut to 10 layers: its
+             losses or logits bit for bit equal to the unsharded run's (or
+             within the slices' bf16 bound, the gap written), the same
+             launches of every kernel (flash, RG-LRU and WKV6 each on a
+             sharded path), 0 collectives in every step, both runs' host
+             wall and peak memory.  It runs after train_moe, so that this
+             process holds little of the card;
   15. dryrun  every (arch x shape) cell of the reference's matrix (10
              archs x 4 shapes; 7 skipped for the reference's reason)
              counted on the meta device at full depth by
@@ -319,6 +334,18 @@ TRAIN_LR = 1e-4
 # for this many steps; losses within the reference's sharded-against-single
 # bound (tests/test_multidevice.py); the child's time limit
 MULTI_STEPS, MULTI_LOSS_TOL, MULTI_TIMEOUT_S = 3, 5e-3, 600
+# the multidevice phase's other families, each sharded on the same (1, 1)
+# mesh and held against the same run unsharded in the child: the train_moe
+# phase's mixtral-8x7b step for this many steps, and prefill plus this many
+# decode steps of B rows for each served arch: (prompt length, max_len,
+# depth or None for the full depth); the vlm is cut to 10 of 40 layers (2
+# super-blocks of 4 self and 1 cross) to keep the phase in its time
+MULTI_MOE_STEPS, MULTI_SERVE_BATCH, MULTI_DECODE_STEPS = 2, 4, 8
+MULTI_SERVE = {"olmo-1b": (512, 1024, None),
+               "recurrentgemma-2b": (2600, 4096, None),
+               "rwkv6-1.6b": (2048, 8192, None),
+               "whisper-small": (256, 448, None),
+               "llama-3.2-vision-11b": (1024, 2048, 10)}
 # the mixtral-8x7b train phase: full width, B=2 sequences of S=2048 in one
 # microbatch, 3 steps on one fixed batch, the olmo phase's lr and warm-up.
 # Depth 1 of 32: the step keeps the old state while it builds the new one
@@ -1660,6 +1687,187 @@ def train_grad_check(dev) -> dict:
     return result
 
 
+def held_bit_for_bit(got: list, want: list) -> dict:
+    """Sharded against unsharded outputs (a list of tensors each): bit for
+    bit, or else the largest gap beside the served slices' bf16 bound
+    (``LOGIT_RTOL`` of the largest |value|), held."""
+    import torch
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    scale = max(float(b.float().abs().max()) for b in want)
+    bound = LOGIT_RTOL["bfloat16"] * scale
+    return {"bit_equal": len(got) == len(want) and all(
+                a.shape == b.shape and bool(torch.equal(a, b))
+                for a, b in zip(got, want)),
+            "max_gap": gap, "bound": bound, "held": gap <= bound}
+
+
+def multidevice_moe(mesh, dev, kernels) -> dict:
+    """moe: the train_moe phase's mixtral-8x7b step (full width, 1 layer,
+    B=2, S=2048, remat) for ``MULTI_MOE_STEPS`` steps, unsharded and then
+    sharded by ``default_plan`` on ``mesh`` (experts on "model") from the
+    same seed; the two states never coexist."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.common import default_plan
+    from repro_torch.sharding import distribute_tree, named_sharding_tree
+    from repro_torch.train import init_state, make_train_step, state_specs
+
+    cfg, tcfg = moe_train_setup()
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=MOE_TRAIN_BATCH,
+                                    vocab=cfg.vocab))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in source.batch_at(0).items()}
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        c = dataclasses.replace(cfg, batch_axes=("data",)) \
+            if name == "sharded" else cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(c, tcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        if name == "sharded":
+            state = distribute_tree(state, named_sharding_tree(
+                default_plan(), mesh, state_specs(c, tcfg)))
+            step = make_train_step(c, tcfg, batch_axes=("data",))
+        else:
+            step = make_train_step(c, tcfg)
+        for k in kernels:
+            k.launches = 0
+        losses, times, comms = [], [], []
+        for _ in range(MULTI_MOE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CommDebugMode() as cm:
+                state, m = step(state, batch)
+                losses.append(m["loss"].detach().clone())
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            comms.append(cm.get_total_counts())
+        runs[name] = {"losses": losses, "step_s": times,
+                      "collectives_per_step": comms,
+                      "launches": {k.__name__: k.launches for k in kernels},
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        if name == "sharded":
+            runs[name]["w_gate_placements"] = str(
+                state["params"]["layers"]["w_gate"].placements)
+        del state, step
+    want = runs["unsharded"].pop("losses")
+    held = held_bit_for_bit(runs["sharded"].pop("losses"), want)
+    return {"family": "moe", "arch": cfg.arch_id, "run": "train step",
+            "layers": cfg.n_layers, "batch": MOE_TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "loss": [float(x) for x in want], **held,
+            **{f"{k}_{n}": v for n, r in runs.items() for k, v in r.items()},
+            "step_ratio": sum(runs["sharded"]["step_s"][1:])
+            / sum(runs["unsharded"]["step_s"][1:])}
+
+
+def multidevice_serve(mesh, dev, kernels, arch: str) -> dict:
+    """A served family: prefill of ``MULTI_SERVE_BATCH`` prompts and
+    ``MULTI_DECODE_STEPS`` decode steps (each step's token the unsharded
+    run's argmax, fed to both runs), unsharded and then on params placed
+    by ``default_plan`` on ``mesh`` with the cache placed by
+    ``cache_shardings``, from the same bf16 weights (seed 0; rwkv6's zero
+    leaves and the vlm's gates drawn as in their slices)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.models.common import default_plan
+    from repro_torch.serving import cache_shardings
+    from repro_torch.sharding import distribute_tree, named_sharding_tree
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    prompt_len, max_len, depth = MULTI_SERVE[arch]
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = zoo.init(cfg, gen, device=dev)
+    if cfg.family == "ssm":
+        draw_rwkv6_leaves(params, gen)
+    if cfg.family == "vlm":
+        draw_vlm_gates(params, gen)
+    cast_as_you_go(params, cfg.activation_dtype)
+    rng = np.random.default_rng(0)
+    b = MULTI_SERVE_BATCH
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, size=(b, prompt_len)), device=dev)}
+    if zoo.needs_frontend(cfg):
+        batch["frontend"] = frontend_for(cfg, dev).expand(b, -1, -1)
+    ml = zoo.cache_max_len(cfg, max_len)
+    scfg = dataclasses.replace(cfg, batch_axes=("data",))
+    plan = default_plan()
+    runs, tokens = {}, []
+    for name in ("unsharded", "sharded"):
+        if name == "sharded":
+            # the placed tree stands alone: the unsharded one is dropped,
+            # so that the peak is the sharded run's own
+            p = distribute_tree(params, named_sharding_tree(
+                plan, mesh, zoo.specs(scfg)))
+            del params
+            shardings, strategy = cache_shardings(
+                scfg, plan, mesh, zoo.abstract_cache(scfg, b, ml),
+                model_degree=mesh.shape[1])
+            prefill = make_prefill_step(scfg, ml, shardings)
+            decode = make_serve_step(scfg)
+        else:
+            p = params
+            prefill, decode = make_prefill_step(cfg, ml), make_serve_step(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        comms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CommDebugMode() as cm:
+            logits, cache = prefill(p, batch)
+        comms.append(cm.get_total_counts())
+        outs = [logits]
+        for i in range(MULTI_DECODE_STEPS):
+            if name == "unsharded":
+                tokens.append(torch.argmax(logits, dim=-1))
+            with CommDebugMode() as cm:
+                logits, cache = decode(p, cache, tokens[i], prompt_len + i)
+            comms.append(cm.get_total_counts())
+            outs.append(logits)
+        torch.cuda.synchronize()
+        runs[name] = {"wall_s": time.perf_counter() - t0, "outs": outs,
+                      "collectives_per_step": comms,
+                      "launches": {k.__name__: k.launches for k in kernels},
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "cache_len": int(cache["len"])}
+        if name == "sharded":
+            runs[name]["cache_placements"] = sorted({
+                str(t.placements) for t in leaves_of(cache)})
+            runs[name]["strategy"] = strategy
+        del cache, p, outs, logits
+    held = held_bit_for_bit(runs["sharded"].pop("outs"),
+                            runs["unsharded"].pop("outs"))
+    return {"family": cfg.family, "arch": cfg.arch_id,
+            "run": f"prefill + {MULTI_DECODE_STEPS} decode steps",
+            "layers": cfg.n_layers, "batch": b, "prompt_len": prompt_len,
+            "max_len": ml, **held,
+            **{f"{k}_{n}": v for n, r in runs.items() for k, v in r.items()},
+            "wall_ratio": runs["sharded"]["wall_s"]
+            / runs["unsharded"]["wall_s"]}
+
+
+def leaves_of(tree) -> list:
+    import torch
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves_of(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def multidevice_child(tmp: str) -> dict:
     """The multidevice phase's child: NCCL at world size 1 on card 0, the
     train phase's olmo-1b state placed by ``default_plan`` on a (1, 1)
@@ -1773,6 +1981,11 @@ def multidevice_child(tmp: str) -> dict:
                 "ms": cuda_ms(lambda: ring_ag_matmul(x, w, mesh=mesh,
                                                      axis="model")),
                 "matmul_ms": cuda_ms(lambda: torch.matmul(x, w))}
+        del x, w, y, ref
+        torch.cuda.empty_cache()
+        families = [multidevice_moe(mesh, dev, kernels)]
+        families += [multidevice_serve(mesh, dev, kernels, arch)
+                     for arch in MULTI_SERVE]
         return {"phase": "multidevice", "backend": dist.get_backend(),
                 "world_size": dist.get_world_size(),
                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
@@ -1785,7 +1998,7 @@ def multidevice_child(tmp: str) -> dict:
                 "traced_step": traced,
                 "checkpoint": {"exact": exact, "bytes": ck_bytes,
                                "save_s": save_s, "restore_s": restore_s},
-                "ring_ag_matmul": ring}
+                "ring_ag_matmul": ring, "families": families}
     finally:
         dist.destroy_process_group()
 
@@ -1800,6 +2013,7 @@ def multidevice(train: dict) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
+    parent_allocated = torch.cuda.memory_allocated()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -1813,7 +2027,8 @@ def multidevice(train: dict) -> dict:
     line = json.loads(lines[-1])
     gaps = [abs(a - b) for a, b in zip(line["loss"], train["loss"])]
     line.update({
-        "wall_s": wall, "unsharded_loss": train["loss"][:MULTI_STEPS],
+        "wall_s": wall, "parent_allocated_bytes": parent_allocated,
+        "unsharded_loss": train["loss"][:MULTI_STEPS],
         "loss_gap": gaps, "loss_tol": MULTI_LOSS_TOL,
         "unsharded_median_step_s": train["median_step_s_2_to_4"],
         "step_ratio": line["median_step_s"] / train["median_step_s_2_to_4"],
@@ -1825,15 +2040,45 @@ def multidevice(train: dict) -> dict:
     expected = train["expected_flash_launches"] // TRAIN_STEPS * MULTI_STEPS
     line["expected_launches"] = {"flash_attention": expected, "rglru": 0,
                                  "wkv6": 0}
+    families = line.pop("families")
+    for fam in families:
+        fam["phase"] = "multidevice_family"
+        fam["ok"] = multidevice_family_ok(fam)
+        emit(fam)
+    line["families_ok"] = {f["arch"]: f["ok"] for f in families}
+    line["launches_by_family"] = {f["arch"]: f["launches_sharded"]
+                                  for f in families}
     line["ok"] = (len(gaps) == MULTI_STEPS
                   and max(gaps) <= MULTI_LOSS_TOL
                   and line["backend"] == "nccl"
                   and line["checkpoint"]["exact"]
                   and line["ring_ag_matmul"]["bit_equal"]
-                  and line["launches"] == line["expected_launches"])
+                  and line["launches"] == line["expected_launches"]
+                  and len(families) == 1 + len(MULTI_SERVE)
+                  and all(f["ok"] for f in families)
+                  and wall <= MULTI_TIMEOUT_S)
     emit(line)
     assert line["ok"], line
     return line
+
+
+# the kernels each family's sharded path must launch (no fallback to a
+# plain version on the card)
+FAMILY_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+                  "hybrid": ("flash_attention", "rglru"),
+                  "ssm": ("wkv6",), "vlm": ("flash_attention",),
+                  "audio": ("flash_attention",)}
+
+
+def multidevice_family_ok(fam: dict) -> bool:
+    """A family's sharded run held against its unsharded one: outputs bit
+    for bit or within the served slices' bound, the same launches of every
+    kernel (each of the family's own at least once), no collective."""
+    sharded, unsharded = fam["launches_sharded"], fam["launches_unsharded"]
+    return ((fam["bit_equal"] or fam["held"])
+            and sharded == unsharded
+            and all(sharded[k] > 0 for k in FAMILY_KERNELS[fam["family"]])
+            and all(n == 0 for n in fam["collectives_per_step_sharded"]))
 
 
 def dryrun_matrix(spec) -> dict:
@@ -2570,9 +2815,11 @@ def main() -> int:
     # 12. train: olmo-1b at full width; its gradients against the plain
     # path; mixtral-8x7b at full width cut in depth
     train = train_olmo(dev)
-    multi = multidevice(train)
     train_grad_check(dev)
     moe_train = train_moe(dev)
+    # after train_moe: the child's mixtral-8x7b steps need the card's
+    # memory that this process no longer holds
+    multi = multidevice(train)
 
     # 15. dry-run: the (arch x shape) matrix on meta against the card's
     # spec, then the counts of the shapes this call ran beside the card's
@@ -2592,10 +2839,20 @@ def main() -> int:
                "olmo-1b service": service["flash_launches"],
                "olmo-1b train": train["flash_launches"],
                "mixtral-8x7b train": moe_train["flash_launches"],
-               "olmo-1b multidevice": multi["launches"]["flash_attention"]}
+               "olmo-1b multidevice": multi["launches"]["flash_attention"],
+               **{f"{arch} multidevice sharded": n["flash_attention"]
+                  for arch, n in multi["launches_by_family"].items()}}
     fa["launches"] = sum(by_path.values())
-    rg["launches"] = rgemma["launches"]["rglru"]
-    wk["launches"] = rwkv["launches"]["wkv6"]
+    rg_by_path = {"recurrentgemma-2b": rgemma["launches"]["rglru"],
+                  "olmo-1b multidevice": multi["launches"]["rglru"],
+                  **{f"{arch} multidevice sharded": n["rglru"]
+                     for arch, n in multi["launches_by_family"].items()}}
+    wk_by_path = {"rwkv6-1.6b": rwkv["launches"]["wkv6"],
+                  "olmo-1b multidevice": multi["launches"]["wkv6"],
+                  **{f"{arch} multidevice sharded": n["wkv6"]
+                     for arch, n in multi["launches_by_family"].items()}}
+    rg["launches"] = sum(rg_by_path.values())
+    wk["launches"] = sum(wk_by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol", "max_err_ratio", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "at")
@@ -2607,15 +2864,9 @@ def main() -> int:
                         if k_ in fa_mixtral},
          "at_whisper_encoder": {k_: fa_whisper[k_] for k_ in flash_keys
                                 if k_ in fa_whisper}},
-        {**{k_: rg[k_] for k_ in keys},
-         "launches_by_path": {
-             "recurrentgemma-2b": rg["launches"],
-             "olmo-1b multidevice": multi["launches"]["rglru"]},
+        {**{k_: rg[k_] for k_ in keys}, "launches_by_path": rg_by_path,
          "at_b1": {k_: rg_b1[k_] for k_ in keys if k_ in rg_b1}},
-        {**{k_: wk[k_] for k_ in keys},
-         "launches_by_path": {
-             "rwkv6-1.6b": wk["launches"],
-             "olmo-1b multidevice": multi["launches"]["wkv6"]},
+        {**{k_: wk[k_] for k_ in keys}, "launches_by_path": wk_by_path,
          "at_b1": {k_: wk_b1[k_] for k_ in keys if k_ in wk_b1}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

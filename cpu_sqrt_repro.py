@@ -7,17 +7,22 @@ Imports torch and nothing of this repository.  Each of ``--processes``
 fresh processes draws a (2, 64, 256) float32 ``c = clamp(1 - a², 1e-12)``
 with a ~ U(0.001, 0.9995) (the RG-LRU's stages before its scan, at the
 shape of ``tests/test_torch_cuda.py``'s gradient case) and, ``--rounds``
-times, runs CPU work of the kind that test file runs before it (an fp32
-attention forward and backward through ``einsum`` on (2, 96, 16, 128), and
-with a card present, card work queued behind a sleep), then takes
-``torch.sqrt(c)`` and holds it against the correctly rounded square root
-(computed in float64 and rounded to float32): PyTorch's float32 sqrt is
-within 1 ulp of it (a relative 1.2e-7), so a call is wrong where it is
-further than 1e-6.
+times, runs the sequence that test file runs just before its RG-LRU
+gradient case, its flash gradient case: the CPU attention of
+``layers.attention`` at olmo-1b's heads ((2, 96, 16, 128), causal, a
+window of 48, the dense fp32 math) forward and backward against seeded
+cotangents, the same once more (the test's CPU repeat), and with a card
+present the inputs copied to the card, the same attention's forward and
+backward there behind a sleep, and its three gradients copied back
+(``.cpu()``, as the test's ``_rel_gap``).  Then it takes the RG-LRU
+stages as the test does (a², 1 - a², the clamp, ``torch.sqrt``) and holds
+the root against the correctly rounded square root (computed in float64
+and rounded to float32): PyTorch's float32 sqrt is within 1 ulp of it (a
+relative 1.2e-7), so a call is wrong where it is further than 1e-6.
 PyTorch's CPU sqrt splits 32,768 elements among its intra-op threads in
 blocks of 2,048 (one thread takes 4,096 of them on 8 threads), so the
-line names each wrong call's wrong 4,096-element blocks and their largest
-relative error.  Prints one JSON line a process and a summary; exits 1 if
+line names each wrong call's wrong 4,096-element blocks, each with its
+largest relative error against the exact root.  Prints one JSON line a process and a summary; exits 1 if
 any call was wrong.
 """
 
@@ -29,6 +34,30 @@ import subprocess
 import sys
 
 
+def attention(q, k, v, window: int = 48):
+    """``layers.attention``'s dense fp32 math (causal, a sliding window):
+    scores, the mask, softmax and the weighted v."""
+    import torch
+    s = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    logits = torch.where(mask[None, None], logits, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+
+
+def attention_grads(ins, cot, device="cpu"):
+    leaves = [t.detach().to(device).requires_grad_(True) for t in ins]
+    out = attention(*leaves)
+    return torch_grad(out, leaves, cot.to(device))
+
+
+def torch_grad(out, leaves, cot):
+    import torch
+    return torch.autograd.grad(out, leaves, cot)
+
+
 def child(rounds: int, seed: int) -> dict:
     import torch
 
@@ -36,25 +65,25 @@ def child(rounds: int, seed: int) -> dict:
     a = 0.001 + 0.9985 * torch.rand((2, 64, 256), generator=gen)
     c = torch.clamp(1.0 - a * a, min=1e-12)
     exact = torch.sqrt(c.double()).float()
-    q, k, v = (torch.randn((2, 96, 16, 128), generator=gen)
-               for _ in range(3))
+    ins = [torch.randn((2, 96, 16, 128), generator=gen) for _ in range(3)]
+    cot = torch.randn((2, 96, 16, 128), generator=gen)
     card = torch.cuda.is_available()
-    if card:
-        big = torch.randn((4096, 4096), device="cuda")
     wrong = []
     for i in range(rounds):
-        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-        s = torch.einsum("bqhd,bkhd->bhqk", qs, ks) / 128 ** 0.5
-        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vs)
-        torch.autograd.grad(o.sum(), (qs, ks, vs))
+        attention_grads(ins, cot)                 # the flash case's want
+        attention_grads(ins, cot)                 # and its CPU repeat
         if card:
             torch.cuda._sleep(2_000_000)
-            big @ big
-        rel = ((torch.sqrt(c) - exact).abs() / exact).reshape(8, 4096)
+            for g in attention_grads(ins, cot, "cuda"):
+                g.cpu()                           # _rel_gap's copies
+        clamped = torch.clamp(1.0 - a * a, min=1e-12)   # the stages
+        root = torch.sqrt(clamped)
+        rel = ((root - exact).abs() / exact).reshape(8, 4096)
         bad = (rel > 1e-6).any(dim=1)
-        if bad.any():
-            wrong.append({"round": i, "blocks": bad.nonzero()[:, 0].tolist(),
-                          "max_rel_err": float(rel.max())})
+        if bad.any() or not torch.equal(clamped, c):
+            wrong.append({"round": i, "clamp_equal": torch.equal(clamped, c),
+                          "blocks": {int(b): float(rel[b].max())
+                                     for b in bad.nonzero()[:, 0]}})
     if card:
         torch.cuda.synchronize()
     return {"seed": seed, "rounds": rounds, "threads": torch.get_num_threads(),

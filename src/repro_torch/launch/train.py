@@ -16,9 +16,11 @@ reference's rule: (2, n/2) ``("data", "model")`` with ``default_plan`` at
 4 ranks or more, else a data-only (n, 1) mesh with ``replicated_plan``
 and the batch sharded over ``data``.  The state is placed on the mesh by
 ``state_specs``; every rank draws the same state and keeps its slice.
-Rank 0 prints and writes the checkpoints:
+Every family trains so (dense, moe, hybrid, ssm, vlm and audio; the vlm
+and audio batches carry their frontend).  Rank 0 prints and writes the
+checkpoints:
 
-    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu --smoke
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu --smoke --arch whisper-small
 """
 
 from __future__ import annotations

@@ -75,7 +75,7 @@ class ModelConfig:
     # port's layer loop is a Python loop and never reads it
     scan_unroll: bool = False
     # mesh axes the activation batch dim is sharded over; when non-empty,
-    # the dense family's layers pin their (B,S,D) activations to that
+    # every family's layers pin their (B,S,D) activations to that
     # placement (``layers.constrain_batch``) on DTensor activations
     batch_axes: tuple = ()
     # sequence parallelism: shard the SEQ dim of layer-boundary

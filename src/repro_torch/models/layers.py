@@ -21,15 +21,23 @@ the reference differentiates its jnp math.
 
 Sharded activations are DTensors (``torch.distributed.tensor``):
 ``constrain_batch`` and ``seq_boundary`` pin their batch (and sequence)
-dims to mesh axes, as the reference's sharding constraints do, and
-attention on DTensors runs on each rank's local tensors (no kernel takes
-a DTensor).
+dims to mesh axes, as the reference's sharding constraints do.  What
+mixes along the sequence (attention, the RG-LRU and WKV6 scans, the
+causal conv and the token shift) and the MoE routing run on each rank's
+local tensors (``on_ranks``): no kernel takes a DTensor, and a sequence
+sharded over ``seq_axes`` is gathered first, as the reference's
+constraint before the scan makes GSPMD do.  Decode attention reads a
+cache placed by ``serving.kvcache.cache_shardings``: rank by rank where
+its heads or rows are sharded, and where its sequence is, as
+flash-decoding (a partial softmax on each rank, combined by
+all-reduces).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import string
 from collections.abc import Callable
 
 import torch
@@ -103,14 +111,184 @@ def seq_boundary(x: torch.Tensor, batch_axes: tuple, seq_axes: tuple
     return _SeqBoundary.apply(x, tuple(batch_axes), tuple(seq_axes))
 
 
-def require_unsharded(cfg, family: str) -> None:
-    """Raise unless ``cfg`` asks for no activation sharding: only the
-    dense family runs sharded."""
-    if cfg.batch_axes or cfg.seq_axes:
-        raise NotImplementedError(
-            f"{family}: a sharded batch (batch_axes {cfg.batch_axes}, "
-            f"seq_axes {cfg.seq_axes}) runs only in the dense family so "
-            "far; see ROADMAP.md")
+def _letters_placements(letters: tuple, layout: str) -> tuple:
+    """One placement a mesh dim for a tensor of ``layout`` (a letter a
+    dim) when mesh dim i splits the dim named ``letters[i]`` (None:
+    replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(layout.index(c)) if c is not None and c in layout
+                 else Replicate() for c in letters)
+
+
+def on_ranks(fn: Callable, args: tuple, layouts: tuple, out_layouts,
+             keep: str, **kw):
+    """``fn(*args, **kw)`` of DTensors, run on each rank's local tensors.
+
+    ``layouts`` names the dims of each arg with one letter a dim (None
+    for an arg that is not a tensor), ``out_layouts`` those of the output
+    (a string, or a tuple of strings for a tuple of outputs).  The first
+    DTensor arg decides the split: a mesh dim that shards one of its dims
+    named in ``keep`` keeps that split, every other mesh dim is gathered
+    (Replicate; a ``Partial`` is reduced).  Each arg is redistributed to
+    the same split (a plain tensor counts as replicated), ``fn`` runs on
+    the local tensors, and each output is wrapped back as a DTensor split
+    the same way.  ``keep`` must hold only dims that ``fn`` does not mix.
+    An arg that lacks a kept dim is read whole on every rank, so its
+    gradient comes back as partial sums on that mesh dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ref = next(i for i, a in enumerate(args) if is_dtensor(a))
+    mesh = args[ref].device_mesh
+    lay = layouts[ref]
+    letters = tuple(lay[p.dim] if isinstance(p, Shard) and lay[p.dim] in keep
+                    else None for p in args[ref].placements)
+    sizes: dict[str, int] = {}
+    local = []
+    for a, lay in zip(args, layouts):
+        if lay is None or not isinstance(a, torch.Tensor):
+            local.append(a)
+            continue
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        for c, n in zip(lay, a.shape):
+            sizes.setdefault(c, n)
+        pl = _letters_placements(letters, lay)
+        grad = tuple(Partial() if c is not None and c not in lay else p
+                     for c, p in zip(letters, pl))
+        local.append(a.redistribute(mesh, pl).to_local(grad_placements=grad))
+    outs = fn(*local, **kw)
+    single = isinstance(out_layouts, str)
+    wrapped = []
+    for o, lay in zip((outs,) if single else outs,
+                      (out_layouts,) if single else out_layouts):
+        missing = [c for c in letters if c is not None and c not in lay]
+        if missing:
+            raise ValueError(f"on_ranks: output {lay} lacks the split "
+                             f"dims {missing}")
+        # a split dim keeps its global size, any other is whole here
+        shape = tuple(sizes[c] if c in letters else n
+                      for c, n in zip(lay, o.shape))
+        wrapped.append(_wrap_local(o, mesh, _letters_placements(letters, lay),
+                                   shape))
+    return wrapped[0] if single else tuple(wrapped)
+
+
+def _wrap_local(o: torch.Tensor, mesh, placements: tuple, shape: tuple
+                ) -> torch.Tensor:
+    """The DTensor of global ``shape`` whose local tensor on this rank is
+    ``o`` (made contiguous: the global stride given is the contiguous
+    one), without a collective."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(
+        o.contiguous(), mesh, tuple(placements), run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+class _ReducedGrad(torch.autograd.Function):
+    """Identity whose backward sums a partial cotangent (Partial ->
+    Replicate on those mesh dims) before it goes on."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_partial(g) if is_dtensor(g) else g
+
+
+def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor with ``dim`` whole on every rank (its splits of ``dim``
+    and its partial sums made Replicate, other splits kept), e.g. before
+    a reshape that splits ``dim`` into pieces a mesh dim does not divide;
+    a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p == Shard(dim) or p.is_partial() else p
+        for p in x.placements))
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n*hd) -> (..., n, hd).  A DTensor whose last dim is split
+    over more pieces than ``n`` heads divide (2 kv heads on a model dim
+    of 4) is gathered on that dim first, as GSPMD reshards the
+    reference's reshape."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Shard
+        pieces = math.prod(t.device_mesh.size(i)
+                           for i, p in enumerate(t.placements)
+                           if p == Shard(t.ndim - 1))
+        if n % pieces:
+            t = gather_dim(t, -1)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table``.  A sharded table is read by
+    ``F.embedding`` (DTensor shards its backward as the table) and the
+    partial rows of a vocab-sharded one are summed at once, so that a
+    remat recompute reads a plain placement; the cotangent coming back
+    is summed first where it is partial (an expert-sharded MoE block
+    leaves it so), since the masked partial's backward takes no other
+    partial.  A plain table is indexed."""
+    if is_dtensor(table):
+        return _ReducedGrad.apply(reduce_partial(F.embedding(ids, table)))
+    return table[ids]
+
+
+def cache_write(dst: torch.Tensor, index: tuple, value: torch.Tensor
+                ) -> None:
+    """``dst[index] = value`` in place, ``index`` a tuple of ints over
+    ``dst``'s leading dims.  On a DTensor (a cache placed by
+    ``cache_shardings``) only the ranks that hold the indexed row write
+    it, into their local tensor at the local index, with ``value``
+    redistributed to the row's placements.  Mesh dims that split the same
+    dim nest in mesh order, as DTensor splits them: each splits the chunk
+    the ones before it left (``_split_index``)."""
+    if not is_dtensor(dst):
+        dst[index] = value
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = dst.device_mesh
+    local_index = list(index)
+    length = list(dst.shape)
+    owner = True
+    row = []
+    for i, p in enumerate(dst.placements):
+        if isinstance(p, Shard) and p.dim < len(index):
+            chunk = -(-length[p.dim] // mesh.size(i))
+            r = local_index[p.dim] // chunk
+            owner &= r == mesh.get_local_rank(i)
+            local_index[p.dim] -= r * chunk
+            length[p.dim] = max(0, min(chunk, length[p.dim] - r * chunk))
+            row.append(Replicate())
+        elif isinstance(p, Shard):
+            row.append(Shard(p.dim - len(index)))
+        else:
+            row.append(p)
+    if not is_dtensor(value):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    # every rank redistributes (a collective may run), the owners write
+    value = value.redistribute(mesh, tuple(row)).to_local()
+    if owner:
+        dst.to_local()[tuple(local_index)] = value
+
+
+def pad_dim(x: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of ``dim`` to ``length`` (a prefill's
+    cache to ``max_len``).  A DTensor pads on each rank's local tensor,
+    ``dim`` gathered and every other split kept."""
+    pad = [0, 0] * (x.ndim - 1 - dim) + [0, length - x.shape[dim]]
+    if not is_dtensor(x):
+        return F.pad(x, pad)
+    lay = string.ascii_lowercase[:x.ndim]
+    return on_ranks(F.pad, (x, pad), (lay, None), lay,
+                    keep=lay.replace(lay[dim], ""))
 
 
 def maybe_remat(body: Callable, remat: str) -> Callable:
@@ -265,27 +443,66 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             q_offset=q_offset, softcap=softcap)
 
 
+def _split_index(mesh, placements: tuple, dim: int) -> int:
+    """Which of the ``prod(n)`` equal chunks of ``dim`` this rank holds
+    under ``placements`` (the mesh dims that shard ``dim`` nest in mesh
+    order, the first the major one, as DTensor splits)."""
+    from torch.distributed.tensor import Shard
+    idx = 0
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
 def _attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        **kw) -> torch.Tensor:
     """Attention of DTensors, rank by rank: ``attention`` on each rank's
     own batch rows and heads, so a rank computes what one card computes
     (on CUDA the flash kernel forward and the dense math's backward).
-    q, k and v go to one placement (Shard(0) and Shard(2) where q has
-    them, Replicate elsewhere; k and v then hold the kv heads of the
-    rank's q heads, K dividing as H does), each rank computes on its
-    local tensors, and the output keeps that placement.  Attention mixes
-    neither rows nor heads, so nothing is exchanged."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    q keeps its Shard(0) and Shard(2) (heads dividing the mesh dim), k
+    and v take the same where their kv heads divide too; where they do
+    not (fewer kv heads than ranks, as MQA), k and v are read whole and
+    each rank takes the kv heads its q heads use.  Attention mixes
+    neither rows nor heads, so nothing else is exchanged."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
-    placements = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
-                       for p in q.placements)
-    local = [t.redistribute(mesh, placements).to_local() for t in (q, k, v)]
-    # contiguous: the global stride given below is the contiguous one
-    o = attention(*local, **kw).contiguous()
-    shape = (*q.shape[:3], v.shape[3])
-    return DTensor.from_local(
-        o, mesh, placements, run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+    h, kh = q.shape[2], k.shape[2]
+    qp, kp = [], []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p == Shard(0):
+            qp.append(p)
+            kp.append(p)
+        elif p == Shard(2) and h % n == 0:
+            qp.append(p)
+            kp.append(p if kh % n == 0 else Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    whole_kv = any(a == Shard(2) and b != Shard(2) for a, b in zip(qp, kp))
+    if whole_kv:
+        kp = [Replicate() if b == Shard(2) else b for b in kp]
+    grad = tuple(Partial() if a == Shard(2) and b != Shard(2) else b
+                 for a, b in zip(qp, kp))
+    ql = q.redistribute(mesh, tuple(qp)).to_local()
+    kl, vl = ((t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False))
+        .redistribute(mesh, tuple(kp)).to_local(grad_placements=grad)
+        for t in (k, v))
+    if whole_kv:
+        hl = ql.shape[2]
+        h0 = _split_index(mesh, tuple(qp), 2) * hl
+        rep = h // kh
+        if hl % rep and rep % hl:
+            # the rank's q heads straddle kv groups unevenly (H=12, K=3
+            # on 2 ranks): a kv head for each q head
+            kl, vl = (repeat_kv(t, rep)[:, :, h0:h0 + hl] for t in (kl, vl))
+        else:
+            first, last = h0 // rep, (h0 + hl - 1) // rep
+            kl, vl = kl[:, :, first:last + 1], vl[:, :, first:last + 1]
+    o = attention(ql, kl, vl, **kw)
+    return _wrap_local(o, mesh, qp, (*q.shape[:3], v.shape[3]))
 
 
 def _attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -308,8 +525,29 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0) -> torch.Tensor:
     """Unmasked attention of q (B,Sq,H,D) over k/v (B,Sk,K,D), as the
     reference's: ``attention`` with ``causal=False`` (the dense math where
-    Sq != Sk)."""
+    Sq != Sk).  On DTensors it runs rank by rank as self-attention does
+    (``_attention_sharded``), the frontend's or encoder's k/v split as
+    q is; a plain k/v (an unsharded frontend) counts as replicated."""
     return attention(q, k, v, causal=False, window=None, softcap=softcap)
+
+
+def _decode_logits(q: torch.Tensor, k_cache: torch.Tensor, cache_len,
+                   window: int | None, offset: int = 0) -> torch.Tensor:
+    """The masked fp32 scores (B,H,1,S) of q against a cache slice whose
+    first position is ``offset``."""
+    b, s, kh, d = k_cache.shape
+    h = q.shape[2]
+    kq = repeat_kv(k_cache, h // kh)
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) * scale
+    kpos = torch.arange(s, device=q.device)[None, None, None, :]
+    if offset:
+        kpos = kpos + offset
+    n = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1, 1, 1)
+    valid = kpos < n
+    if window is not None:
+        valid &= kpos >= n - window
+    return torch.where(valid, logits, -1e30)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -317,21 +555,80 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: int | None = None) -> torch.Tensor:
     """Single-token decode: q (B,1,H,D), caches (B,S,K,D) with valid
     prefix ``cache_len``.  Position of q is cache_len-1 (the newest token
-    is already written into the cache)."""
-    b, s, kh, d = k_cache.shape
-    h = q.shape[2]
-    kq = repeat_kv(k_cache, h // kh)
-    vq = repeat_kv(v_cache, h // kh)
-    scale = 1.0 / math.sqrt(d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) * scale
-    kpos = torch.arange(s, device=q.device)[None, None, None, :]
-    n = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1, 1, 1)
-    valid = kpos < n
-    if window is not None:
-        valid &= kpos >= n - window
-    logits = torch.where(valid, logits, -1e30)
+    is already written into the cache).  A DTensor cache (placed by
+    ``serving.kvcache.cache_shardings``) goes to ``_decode_sharded``."""
+    if is_dtensor(k_cache):
+        return _decode_sharded(q, k_cache, v_cache, cache_len, window)
+    h, kh = q.shape[2], k_cache.shape[2]
+    logits = _decode_logits(q, k_cache, cache_len, window)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vq)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, repeat_kv(v_cache, h // kh))
+
+
+def _decode_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, cache_len,
+                    window: int | None) -> torch.Tensor:
+    """``decode_attention`` on a placed cache, rank by rank.  q takes the
+    cache's split of rows (Shard(0)) and kv heads (Shard(2), the
+    head-sharded policy); a mesh dim that splits the cache's sequence
+    (Shard(1), the sequence-sharded policy) leaves q whole and runs
+    flash-decoding: an all-reduce over that mesh dim takes the max of the
+    ranks' scores, each rank sums the exponentials and the
+    exponential-weighted v of its own positions against that max, and a
+    second all-reduce adds them up (a mesh dim of size 1 holds every
+    position and needs neither).  A replicated cache runs
+    ``decode_attention``'s own math on every rank."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k_cache.device_mesh
+    qp, kp, seq_dims = [], [], []
+    for i, p in enumerate(k_cache.placements):
+        if p in (Shard(0), Shard(2)):
+            qp.append(p)
+            kp.append(p)
+        elif p == Shard(1) and mesh.size(i) == 1:
+            qp.append(Replicate())       # one rank holds every position
+            kp.append(p)
+        elif p == Shard(1):
+            qp.append(Replicate())
+            kp.append(p)
+            seq_dims.append(i)
+        else:                   # replicated, or a split of the head dim
+            qp.append(Replicate())
+            kp.append(Replicate())
+    if not is_dtensor(q):
+        q = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    ql = q.redistribute(mesh, tuple(qp)).to_local()
+    kl = k_cache.redistribute(mesh, tuple(kp)).to_local()
+    vl = v_cache.redistribute(mesh, tuple(kp)).to_local()
+    if not seq_dims:
+        o = decode_attention(ql, kl, vl, cache_len, window=window)
+    else:
+        s_loc = kl.shape[1]
+        if s_loc * math.prod(mesh.size(i) for i in seq_dims) != \
+                k_cache.shape[1]:
+            raise ValueError(f"decode: a cache of {k_cache.shape[1]} "
+                             "positions does not split evenly over "
+                             f"mesh dims {seq_dims}")
+        offset = _split_index(mesh, tuple(kp), 1) * s_loc
+        logits = _decode_logits(ql, kl, cache_len, window, offset)
+        m = logits.amax(dim=-1, keepdim=True)                   # (B,H,1,1)
+        for i in seq_dims:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        e = torch.exp(logits - m)
+        h, kh = ql.shape[2], kl.shape[2]
+        o_part = torch.einsum("bhqk,bkhd->bqhd", e,
+                              repeat_kv(vl, h // kh).float())
+        b, _, hh, d = o_part.shape
+        packed = torch.cat([o_part.reshape(b, hh * d),
+                            e.sum(dim=-1).reshape(b, hh)], dim=1)
+        for i in seq_dims:
+            packed = funcol.all_reduce(packed, "sum", (mesh, i))
+        o_sum = packed[:, :hh * d].reshape(b, 1, hh, d)
+        l_sum = packed[:, hh * d:].reshape(b, 1, hh, 1)
+        o = (o_sum / l_sum).to(ql.dtype)
+    return _wrap_local(o, mesh, qp, (*q.shape[:3], v_cache.shape[3]))
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +701,15 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     expert's next buffer position after every earlier route to that
     expert (all of slot j-1's, kept or dropped); a route at or past
     capacity is dropped and the token keeps only its residual there.  Aux
-    is the Switch load-balancing loss of slot 0, in fp32."""
+    is the Switch load-balancing loss of slot 0, in fp32.
+
+    On DTensors the routing (``_moe_routing``: the sort, one-hots and
+    position ``cumsum`` of a group) runs on each rank's own rows
+    (``on_ranks``), and the expert products run on DTensors: experts
+    sharded on dim 0 (expert parallelism; their outputs are gathered
+    before the combine) or replicated there with the FFN split inside
+    each (the plan's fallback).  Aux is the mean over the global batch,
+    as the reference's sharded step computes it."""
     b, s, d = x.shape
     dt = x.dtype
     if s > MOE_GROUP:
@@ -415,11 +720,41 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
                              n_experts=n_experts, top_k=top_k,
                              capacity_factor=capacity_factor)
         return out.reshape(b, s, d), aux
-    capacity = moe_capacity(s, n_experts, top_k, capacity_factor)
-    probs, gate_vals, gate_idx = moe_route(p, x, top_k)
+    route = functools.partial(
+        _moe_routing, n_experts=n_experts, top_k=top_k,
+        capacity=moe_capacity(s, n_experts, top_k, capacity_factor))
+    if is_dtensor(x):
+        combine, dispatch, aux_rows = on_ranks(
+            route, (x, p["router"]), ("bsd", "de"), ("bsec", "bsec", "b"),
+            keep="b")
+    else:
+        combine, dispatch, aux_rows = route(x, p["router"])
+    aux = n_experts * torch.mean(aux_rows)
+
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), x)
+    gate = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_gate"].to(dt))
+    up = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_up"].to(dt))
+    act = F.silu(gate.float()).to(dt) * up
+    expert_out = torch.einsum("ebcf,efd->ebcd", act, p["w_down"].to(dt))
+    # the combine contracts (c, e), e the minor dim: DTensor (torch 2.11)
+    # flattens no pair whose minor dim is split, so expert-split outputs
+    # are gathered first; the contraction order stays the plain path's
+    out = torch.einsum("bsec,ebcd->bsd", combine.to(dt),
+                       gather_dim(expert_out, 0))
+    return out, aux
+
+
+def _moe_routing(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
+                 top_k: int, capacity: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One group a row: the fp32 combine weights and the boolean dispatch
+    (B,S,E,C), and each row's load-balancing term (B,) (the sum over
+    experts of mean prob times slot-0 load), of ``moe_block``."""
+    b, s, _ = x.shape
+    probs, gate_vals, gate_idx = moe_route({"router": router}, x, top_k)
     me = probs.mean(dim=1)                                         # (B,E)
     ce = F.one_hot(gate_idx[..., 0], n_experts).float().mean(dim=1)
-    aux = n_experts * torch.mean(torch.sum(me * ce, dim=-1))
+    aux_rows = torch.sum(me * ce, dim=-1)
 
     slots = torch.arange(capacity, device=x.device)
     combine = torch.zeros((b, s, n_experts, capacity), dtype=torch.float32,
@@ -438,14 +773,7 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         oh_cap = pos[..., None] == slots                          # (B,S,E,C)
         combine = combine + oh_cap * gate_vals[..., slot, None, None]
         dispatch |= oh_cap
-
-    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), x)
-    gate = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_gate"].to(dt))
-    up = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_up"].to(dt))
-    act = F.silu(gate.float()).to(dt) * up
-    expert_out = torch.einsum("ebcf,efd->ebcd", act, p["w_down"].to(dt))
-    out = torch.einsum("bsec,ebcd->bsd", combine.to(dt), expert_out)
-    return out, aux
+    return combine, dispatch, aux_rows
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +796,12 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
     sequential scan on the CPU); with a carried ``h0`` (decode) it runs
     the plain scan from ``h0``, which is the reference's fold of ``h0``
     into step 0.  The reference's associative scan sums in another order:
-    the two agree to about 1e-5 in float32."""
+    the two agree to about 1e-5 in float32.  DTensors run rank by rank
+    (``on_ranks``): rows and channels keep their split, a split sequence
+    is gathered, and the same scan runs on the local tensors."""
+    if is_dtensor(a) or is_dtensor(x):
+        return on_ranks(rglru_scan, (a, x, h0), ("bsr", "bsr", "br"),
+                        ("bsr", "br"), keep="br", scan=scan)
     if h0 is not None:
         return rglru_plain(a, x, h0)
     return (scan or rglru)(a, x)

@@ -21,7 +21,11 @@ a (B,3,R) conv tail ``conv`` (``rec1``/``rec2`` of shape (n_supers,...),
 ``tail`` (n_tail,...)); per attention block a window-sized ring buffer
 k/v (n_supers, S_max, B, K, hd); "len" is a Python int.  ``decode_step``
 writes every state IN PLACE (the reference returns a fresh cache) and
-returns the same dict with "len" advanced.
+returns the same dict with "len" advanced; a cache placed on a mesh
+(``serving.kvcache``) is written by ``layers.cache_write``, each rank its
+own slice.  Sharded, each block pins its input to the batch (and
+sequence) split (``layers.constrain_batch``), as the reference's; the
+conv, the RG-LRU scan and attention run rank by rank on local tensors.
 
 On CUDA, prefill runs the flash attention kernel in the attention blocks
 and the RG-LRU kernel in the recurrent blocks; decode (S=1, state carried
@@ -39,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
+from repro_torch.models.common import (ModelConfig, TreeBuilder, is_dtensor,
+                                       unstack)
 from repro_torch.models.transformer import unembed
 
 CONV_W = 4
@@ -130,6 +135,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv1d, width CONV_W. x (B,S,R), w (CONV_W,R).
     ``tail``: (B,CONV_W-1,R) carried history. Returns (y, new_tail)."""
+    if is_dtensor(x):
+        # the conv mixes along the sequence only: rank by rank, rows and
+        # channels kept split, a split sequence gathered
+        return L.on_ranks(_causal_conv, (x, w, b, tail),
+                          ("bsr", "cr", "r", "btr"), ("bsr", "btr"),
+                          keep="br")
     if tail is None:
         tail = torch.zeros((x.shape[0], CONV_W - 1, x.shape[2]),
                            dtype=x.dtype, device=x.device)
@@ -152,6 +163,7 @@ def _rec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                conv_tail: torch.Tensor | None = None, *,
                rglru_fn: L.RglruScan | None = None):
     """Returns (x', (h_last float32 (B,R), conv tail (B,3,R)))."""
+    x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     dt = x.dtype
     h = L.rms_norm(x, lp["norm"])
     gate = F.gelu((h @ lp["wy"].to(dt)).float(), approximate="tanh").to(dt)
@@ -167,12 +179,11 @@ def _rec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
          sin: torch.Tensor):
     dt = x.dtype
-    b, s, _ = x.shape
     hd = cfg.hd
     h = L.rms_norm(x, lp["norm"])
-    q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
+    k = L.split_heads(h @ lp["wk"].to(dt), cfg.n_kv_heads, hd)
+    v = L.split_heads(h @ lp["wv"].to(dt), cfg.n_kv_heads, hd)
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
@@ -188,6 +199,7 @@ def _attn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor,
                 self_attn: L.SelfAttention):
     """Returns (x', (k, v)) with k/v as (S,B,K,hd)."""
+    x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     q, k, v = _qkv(cfg, lp, x, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
     return _attn_out(cfg, lp, x, o), (k.transpose(0, 1), v.transpose(0, 1))
@@ -201,7 +213,7 @@ def _trunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     recurrent state."""
     s = tokens.shape[1]
     dt = cfg.activation_dtype
-    x = params["embed"]["table"][tokens].to(dt)
+    x = L.embed_rows(params["embed"]["table"], tokens).to(dt)
     cos, sin = L.rope_angles(torch.arange(s, device=tokens.device), cfg.hd,
                              cfg.rope_theta)
     attn = self_attn or L.attention
@@ -232,7 +244,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             self_attn: L.SelfAttention | None = None,
             rglru_fn: L.RglruScan | None = None):
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss)."""
-    L.require_unsharded(cfg, "hybrid")
     x, _, _ = _trunk(cfg, params, batch["tokens"], self_attn, rglru_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux
@@ -284,8 +295,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     kc = torch.stack([k for _, _, k, _ in supers])     # (ns,S,B,K,hd)
     vc = torch.stack([v for _, _, _, v in supers])
     if max_len >= s:
-        pad = (0, 0, 0, 0, 0, 0, 0, max_len - s)   # pad dim 1 (S) at the end
-        kc, vc = F.pad(kc, pad), F.pad(vc, pad)
+        kc, vc = L.pad_dim(kc, 1, max_len), L.pad_dim(vc, 1, max_len)
     else:
         kc = kc[:, s - max_len:].contiguous()
         vc = vc[:, s - max_len:].contiguous()
@@ -303,8 +313,8 @@ def _rec_step(cfg: ModelConfig, lp: dict, x: torch.Tensor, state: dict,
     conv tail in ``state`` are updated in place."""
     x, (h, conv) = _rec_block(cfg, lp, x, h0=state["h"][i],
                               conv_tail=state["conv"][i])
-    state["h"][i] = h
-    state["conv"][i] = conv
+    L.cache_write(state["h"], (i,), h)
+    L.cache_write(state["conv"], (i,), conv)
     return x
 
 
@@ -316,7 +326,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     n = int(cache["len"])
     slot = n % max_len
     n_valid = min(n + 1, max_len)
-    x = params["embed"]["table"][token].to(cfg.activation_dtype)[:, None]
+    x = L.embed_rows(params["embed"]["table"], token).to(
+        cfg.activation_dtype)[:, None]
     cos, sin = L.rope_angles(
         torch.as_tensor(pos, device=token.device).reshape(1), cfg.hd,
         cfg.rope_theta)
@@ -325,8 +336,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         x = _rec_step(cfg, lp["rec1"], x, cache["rec1"], i)
         x = _rec_step(cfg, lp["rec2"], x, cache["rec2"], i)
         q, k, v = _qkv(cfg, lp["attn"], x, cos[None], sin[None])
-        cache["k"][i, slot] = k[:, 0]        # in place: this block's row
-        cache["v"][i, slot] = v[:, 0]
+        L.cache_write(cache["k"], (i, slot), k[:, 0])   # in place
+        L.cache_write(cache["v"], (i, slot), v[:, 0])
         o = L.decode_attention(
             q, cache["k"][i].transpose(0, 1), cache["v"][i].transpose(0, 1),
             n_valid)    # the ring buffer already bounds the window

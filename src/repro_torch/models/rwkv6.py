@@ -18,7 +18,11 @@ Serving state, O(1) in sequence length: per layer the (B,H,D,D) float32
 matrix state ``tm_state`` and the previous token's activations of both
 token shifts (``tm_prev``, ``cm_prev``); "len" is a Python int.
 ``decode_step`` writes every state IN PLACE (the reference returns a
-fresh cache) and returns the same dict with "len" advanced.
+fresh cache) and returns the same dict with "len" advanced; a cache
+placed on a mesh (``serving.kvcache``) is written by
+``layers.cache_write``, each rank its own rows.  Sharded, each layer pins
+its input to the batch (and sequence) split, as the reference's
+``_layer``; the token shifts and WKV6 run rank by rank.
 
 Forward and prefill run the WKV6 wrapper with the reference's clip floor
 (``WKV_FLOOR``): on CUDA it launches the kernel, on the CPU it runs the
@@ -39,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
+from repro_torch.models.common import (ModelConfig, TreeBuilder, is_dtensor,
+                                       unstack)
 from repro_torch.models.transformer import unembed
 
 LORA_R = 32          # low-rank size of the ddlerp/decay LoRAs
@@ -110,14 +115,24 @@ def specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
-    """Token shift: x[t-1]; position 0 gets ``prev`` (carried state) or 0."""
+    """Token shift: x[t-1]; position 0 gets ``prev`` (carried state) or 0.
+    On DTensors rank by rank, rows and channels kept split."""
+    if is_dtensor(x):
+        return L.on_ranks(_shift, (x, prev), ("bsd", "bd"), "bsd", keep="bd")
     pad = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None]
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
 def _wkv(r, k, v, w, u, state0, wkv_fn: WkvFn | None):
     """The WKV6 recurrence of one layer on (B,H,S,D) heads: the whole
-    prompt from a zero state, or one decode step from ``state0``."""
+    prompt from a zero state, or one decode step from ``state0``.  On
+    DTensors rank by rank (``layers.on_ranks``): rows and heads keep their
+    split, a split sequence is gathered, and the same wrapper (on CUDA
+    the kernel) runs on the local tensors."""
+    if is_dtensor(r):
+        return L.on_ranks(_wkv, (r, k, v, w, u, state0, wkv_fn),
+                          ("bhsd", "bhsd", "bhsd", "bhsd", "hd", "bhde",
+                           None), ("bhsd", "bhde"), keep="bh")
     if state0 is None:
         return (wkv_fn or wkv6)(r, k, v, w, u, floor=WKV_FLOOR)
     out, state = L.rwkv6_step(r[:, :, 0], k[:, :, 0], v[:, :, 0],
@@ -137,7 +152,8 @@ def _time_mix(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     xs = _shift(x, prev0)
     delta = xs - x
     # ddlerp: 5 interpolation amounts from a shared LoRA
-    lora = x @ lp["tm_lora_a"].to(dt)
+    # the 5 LoRAs' 160 columns whole: 5 pieces split over no mesh dim
+    lora = L.gather_dim(x @ lp["tm_lora_a"].to(dt), -1)
     lora = torch.tanh(lora.float()).to(dt).reshape(b, s, 5, LORA_R)
     amt = lp["tm_mu"].to(dt)[None, None] + torch.einsum(
         "bskr,krd->bskd", lora, lp["tm_lora_b"].to(dt))
@@ -155,7 +171,7 @@ def _time_mix(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     w = torch.exp(logw)                                       # decay in (0,1)
 
     def heads(z):               # (B,S,D) -> (B,H,S,D) view, no copy
-        return z.reshape(b, s, n_heads, hd).transpose(1, 2)
+        return L.split_heads(z, n_heads, hd).transpose(1, 2)
 
     out, final_state = _wkv(heads(r), heads(k), heads(v), heads(w.to(dt)),
                             lp["u"].float(), state0, wkv_fn)
@@ -183,6 +199,7 @@ def _channel_mix(lp: dict, x: torch.Tensor, prev0: torch.Tensor | None):
 
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, tm_state=None,
            tm_prev=None, cm_prev=None, wkv_fn: WkvFn | None = None):
+    x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     h = L.rms_norm(x, lp["tm_norm"])
     tm_out, tm_state_new, tm_last = _time_mix(cfg, lp, h, tm_state, tm_prev,
                                               wkv_fn)
@@ -197,7 +214,8 @@ def _trunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            wkv_fn: WkvFn | None):
     """Embedding through the final norm.  Returns (x (B,S,D), per-layer
     (tm_state, tm_last, cm_last))."""
-    x = params["embed"]["table"][tokens].to(cfg.activation_dtype)
+    x = L.embed_rows(params["embed"]["table"], tokens).to(
+        cfg.activation_dtype)
     layer = L.maybe_remat(_layer, cfg.remat)
     states = []
     for lp in unstack(params["layers"], cfg.n_layers):
@@ -209,7 +227,6 @@ def _trunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             wkv_fn: WkvFn | None = None):
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss)."""
-    L.require_unsharded(cfg, "ssm")
     x, _ = _trunk(cfg, params, batch["tokens"], wkv_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux
@@ -253,14 +270,15 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
     """token: (B,) int.  Writes every layer's state in place."""
-    x = params["embed"]["table"][token].to(cfg.activation_dtype)[:, None]
+    x = L.embed_rows(params["embed"]["table"], token).to(
+        cfg.activation_dtype)[:, None]
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         x, (st, tm_last, cm_last) = _layer(
             cfg, lp, x, tm_state=cache["tm_state"][i],
             tm_prev=cache["tm_prev"][i], cm_prev=cache["cm_prev"][i])
-        cache["tm_state"][i] = st
-        cache["tm_prev"][i] = tm_last
-        cache["cm_prev"][i] = cm_last
+        L.cache_write(cache["tm_state"], (i,), st)
+        L.cache_write(cache["tm_prev"], (i,), tm_last)
+        L.cache_write(cache["cm_prev"], (i,), cm_last)
     x = L.rms_norm(x[:, 0], params["final_norm"])
     cache["len"] += 1
     return unembed(cfg, params, x), cache

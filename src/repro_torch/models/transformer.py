@@ -20,7 +20,9 @@ Interfaces (as the reference's):
 KV cache layout: k/v (L, S_max, B, K, hd) + "len" (a Python int).
 ``decode_step`` writes the new (L, B, K, hd) row into the cache tensors IN
 PLACE (the reference returns a fresh cache); it returns the same dict with
-"len" advanced.
+"len" advanced.  A cache placed on a mesh (``serving.kvcache``) is written
+by ``layers.cache_write`` (each rank its own slice) and read by
+``layers.decode_attention`` rank by rank.
 
 ``self_attn`` (forward/prefill) replaces the prefill self-attention with
 another function of the same signature, e.g. the kernel's plain version,
@@ -32,11 +34,9 @@ around its scan body.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import (ModelConfig, TreeBuilder, is_dtensor,
-                                       unstack)
+from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
 
 
 # ---------------------------------------------------------------------------
@@ -129,17 +129,10 @@ def _mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor
 
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (x (B,S,D) in the activation dtype, RoPE cos, sin).
-    A sharded table is read by ``F.embedding`` (the same rows; DTensor
-    shards its backward as the table), and the partial rows of a
-    vocab-sharded table are summed at once, so that a remat recompute
-    of the first layer reads a plain placement."""
-    table = params["embed"]["table"]
-    if is_dtensor(table):
-        x = L.reduce_partial(F.embedding(tokens, table))
-    else:
-        x = table[tokens]
-    x = x.to(cfg.activation_dtype)
+    """tokens (B,S) -> (x (B,S,D) in the activation dtype, RoPE cos, sin);
+    a sharded table is read by ``layers.embed_rows``."""
+    x = L.embed_rows(params["embed"]["table"], tokens).to(
+        cfg.activation_dtype)
     cos, sin = L.rope_angles(torch.arange(tokens.shape[1],
                                           device=tokens.device),
                              cfg.hd, cfg.rope_theta)
@@ -162,9 +155,9 @@ def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     h = _norm(cfg, x, lp["attn_norm"])
     if cfg.seq_axes:
         h = L.constrain_batch(h, cfg.batch_axes, ())   # gather into TP
-    q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
+    k = L.split_heads(h @ lp["wk"].to(dt), cfg.n_kv_heads, hd)
+    v = L.split_heads(h @ lp["wv"].to(dt), cfg.n_kv_heads, hd)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
@@ -215,8 +208,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     """batch: {"tokens": (B,S) int}. Returns (logits, aux_loss[, kv]).
 
     ``last_only``: unembed only the final position (prefill path)."""
-    if cfg.moe_experts:
-        L.require_unsharded(cfg, "moe")
     x, cos, sin = embed(cfg, params, batch["tokens"])
     attn = self_attn or L.attention
     layer = L.maybe_remat(_layer, cfg.remat)
@@ -268,8 +259,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                   collect_cache=True, last_only=True,
                                   self_attn=self_attn)
     if max_len >= s:
-        pad = (0, 0, 0, 0, 0, 0, 0, max_len - s)   # pad dim 1 (S) at the end
-        kc, vc = F.pad(kc, pad), F.pad(vc, pad)
+        kc, vc = L.pad_dim(kc, 1, max_len), L.pad_dim(vc, 1, max_len)
     else:
         kc = kc[:, s - max_len:].contiguous()
         vc = vc[:, s - max_len:].contiguous()
@@ -287,19 +277,19 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     n = int(cache["len"])
     slot = n % max_len
     n_valid = min(n + 1, max_len)
-    x = params["embed"]["table"][token].to(dt)[:, None]          # (B,1,D)
+    x = L.embed_rows(params["embed"]["table"], token).to(dt)[:, None]
     cos, sin = L.rope_angles(
         torch.as_tensor(pos, device=token.device).reshape(1), hd,
         cfg.rope_theta)
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         h = _norm(cfg, x, lp["attn_norm"])
-        q = (h @ lp["wq"].to(dt)).reshape(b, 1, cfg.n_heads, hd)
-        k = (h @ lp["wk"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)
-        v = (h @ lp["wv"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)
+        q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
+        k = L.split_heads(h @ lp["wk"].to(dt), cfg.n_kv_heads, hd)
+        v = L.split_heads(h @ lp["wv"].to(dt), cfg.n_kv_heads, hd)
         q = L.apply_rope(q, cos[None], sin[None])
         k = L.apply_rope(k, cos[None], sin[None])
-        cache["k"][i, slot] = k[:, 0]        # in place: this layer's row
-        cache["v"][i, slot] = v[:, 0]
+        L.cache_write(cache["k"], (i, slot), k[:, 0])   # in place
+        L.cache_write(cache["v"], (i, slot), v[:, 0])
         o = L.decode_attention(
             q, cache["k"][i].transpose(0, 1), cache["v"][i].transpose(0, 1),
             n_valid, window=None)   # ring buffer already bounds the window

@@ -23,7 +23,10 @@ Interfaces (as the reference's):
 
 Cache: self k/v (ns, sps, S_max, B, K, hd), cross xk/xv (ns, B, T, K, hd)
 and "len" (a Python int).  ``decode_step`` writes the new self k/v rows
-in place, as ``transformer.decode_step`` does.  ``self_attn``
+in place, as ``transformer.decode_step`` does, and reads the cross k/v
+through ``layers.decode_attention`` (a placed cache rank by rank).
+Sharded, each self layer is ``transformer._layer`` and each cross layer
+pins its input to the batch (and sequence) split, as the reference's.  ``self_attn``
 (forward/prefill) replaces the self-attention, as in ``transformer``;
 cross-attention (Sq != Sk) runs ``layers.cross_attention``.
 """
@@ -31,7 +34,6 @@ cross-attention (Sq != Sk) runs ``layers.cross_attention``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -115,15 +117,19 @@ def _gate(g: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def _cross_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                 img_k: torch.Tensor, img_v: torch.Tensor) -> torch.Tensor:
+                 img_k: torch.Tensor, img_v: torch.Tensor,
+                 attend=L.cross_attention) -> torch.Tensor:
     """Gated cross-attention and gated MLP (Llama 3.2).  img_k/v:
-    (B,T,K,hd)."""
+    (B,T,K,hd).  ``attend`` is ``layers.cross_attention``, or in decode
+    ``layers.decode_attention`` over all T positions (the same math,
+    which reads a placed cache rank by rank)."""
+    x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     dt = x.dtype
     b, s, _ = x.shape
     hd = cfg.hd
     h = L.rms_norm(x, lp["norm"])
-    q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    o = L.cross_attention(q, img_k, img_v)
+    q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
+    o = attend(q, img_k, img_v)
     o = o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
     x = x + _gate(lp["gate_attn"], dt) * o
     m = L.mlp_swiglu(lp, L.rms_norm(x, lp["mlp_norm"]))
@@ -134,9 +140,8 @@ def _img_kv(cfg: ModelConfig, lp: dict, img: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The frontend embeddings projected to one cross layer's k/v."""
     dt = img.dtype
-    b, t, _ = img.shape
-    k = (img @ lp["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
-    v = (img @ lp["wv"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+    k = L.split_heads(img @ lp["wk"].to(dt), cfg.n_kv_heads, cfg.hd)
+    v = L.split_heads(img @ lp["wv"].to(dt), cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
@@ -162,7 +167,7 @@ def _run(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     (before the final norm) and each super's (ks, vs, xk, xv)."""
     dt = cfg.activation_dtype
     ns, _ = layout(cfg)
-    x = params["embed"]["table"][tokens].to(dt)
+    x = L.embed_rows(params["embed"]["table"], tokens).to(dt)
     cos, sin = L.rope_angles(torch.arange(tokens.shape[1],
                                           device=tokens.device),
                              cfg.hd, cfg.rope_theta)
@@ -178,7 +183,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             self_attn: L.SelfAttention | None = None):
     """batch: tokens (B,S) and frontend (B, T_img, d_model).  Returns
     (logits, aux), aux a float32 zero."""
-    L.require_unsharded(cfg, "vlm")
     img = batch["frontend"].to(cfg.activation_dtype)
     x, _ = _run(cfg, params, batch["tokens"], img, self_attn or L.attention,
                 cfg.remat)
@@ -222,11 +226,11 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            ).to(dt)
     x, kvs = _run(cfg, params, tokens, img, self_attn or L.attention, "none")
     kc, vc, xk, xv = (torch.stack(t) for t in zip(*kvs))
-    pad = (0, 0, 0, 0, 0, 0, 0, max_len - s)     # pad dim 2 (S) at the end
     x = L.rms_norm(x[:, -1], params["final_norm"])
     logits = x @ params["unembed"].to(dt)
-    return logits, {"k": F.pad(kc, pad), "v": F.pad(vc, pad), "xk": xk,
-                    "xv": xv, "len": s}
+    return logits, {"k": L.pad_dim(kc, 2, max_len),
+                    "v": L.pad_dim(vc, 2, max_len), "xk": xk, "xv": xv,
+                    "len": s}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
@@ -238,25 +242,30 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     hd = cfg.hd
     ns, sps = layout(cfg)
     n = int(cache["len"])
-    x = params["embed"]["table"][token].to(dt)[:, None]          # (B,1,D)
+
+    def cross(q, k, v):
+        return L.decode_attention(q, k, v, k.shape[1])
+
+    x = L.embed_rows(params["embed"]["table"], token).to(dt)[:, None]
     cos, sin = L.rope_angles(
         torch.as_tensor(pos, device=token.device).reshape(1), hd,
         cfg.rope_theta)
     for i, lp in enumerate(unstack(params["supers"], ns)):
         for j, slp in enumerate(unstack(lp["self"], sps)):
             h = L.rms_norm(x, slp["attn_norm"])
-            q = (h @ slp["wq"].to(dt)).reshape(b, 1, cfg.n_heads, hd)
-            k = (h @ slp["wk"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)
-            v = (h @ slp["wv"].to(dt)).reshape(b, 1, cfg.n_kv_heads, hd)
+            q = L.split_heads(h @ slp["wq"].to(dt), cfg.n_heads, hd)
+            k = L.split_heads(h @ slp["wk"].to(dt), cfg.n_kv_heads, hd)
+            v = L.split_heads(h @ slp["wv"].to(dt), cfg.n_kv_heads, hd)
             q = L.apply_rope(q, cos[None], sin[None])
             k = L.apply_rope(k, cos[None], sin[None])
-            cache["k"][i, j, n] = k[:, 0]          # in place: this layer's row
-            cache["v"][i, j, n] = v[:, 0]
+            L.cache_write(cache["k"], (i, j, n), k[:, 0])   # in place
+            L.cache_write(cache["v"], (i, j, n), v[:, 0])
             o = L.decode_attention(q, cache["k"][i, j].transpose(0, 1),
                                    cache["v"][i, j].transpose(0, 1), n + 1)
             x = x + o.reshape(b, 1, cfg.n_heads * hd) @ slp["wo"].to(dt)
             x = x + L.mlp_swiglu(slp, L.rms_norm(x, slp["mlp_norm"]))
-        x = _cross_block(cfg, lp["cross"], x, cache["xk"][i], cache["xv"][i])
+        x = _cross_block(cfg, lp["cross"], x, cache["xk"][i], cache["xv"][i],
+                         attend=cross)
     x = L.rms_norm(x[:, 0], params["final_norm"])
     logits = x @ params["unembed"].to(dt)
     cache["len"] = n + 1

@@ -23,7 +23,10 @@ Interfaces (as the reference's):
 
 Cache: decoder self k/v (nd, S_max, B, K, hd), cross xk/xv (nd, T, B, K,
 hd) and "len" (a Python int); the encoder runs once, at prefill, and
-``decode_step`` writes the new self k/v rows in place.  ``self_attn``
+``decode_step`` writes the new self k/v rows in place and reads every
+cached k/v through ``layers.decode_attention`` (a placed cache rank by
+rank).  Sharded, each encoder and decoder layer pins its input to the
+batch (and sequence) split, as the reference's.  ``self_attn``
 (encode/forward/prefill) replaces both self-attentions (the encoder's is
 non-causal); cross-attention runs ``layers.cross_attention``.
 """
@@ -31,7 +34,6 @@ non-causal); cross-attention runs ``layers.cross_attention``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, TreeBuilder, unstack
@@ -103,8 +105,7 @@ def _norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def _heads(x: torch.Tensor, w: torch.Tensor, n: int, hd: int
            ) -> torch.Tensor:
-    b, s, _ = x.shape
-    return (x @ w.to(x.dtype)).reshape(b, s, n, hd)
+    return L.split_heads(x @ w.to(x.dtype), n, hd)
 
 
 def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -133,6 +134,7 @@ def _sinusoid(s: int, d: int, device: torch.device) -> torch.Tensor:
 
 def _enc_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                attn: L.SelfAttention) -> torch.Tensor:
+    x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     o, _, _ = _self(cfg, lp, _norm(x, lp["attn_norm"]), attn, causal=False)
     x = x + o
     return x + L.mlp_gelu(lp, _norm(x, lp["mlp_norm"]))
@@ -153,6 +155,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
 def _dec_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                enc: torch.Tensor, attn: L.SelfAttention):
     """One decoder block; returns (x', k, v, xk, xv)."""
+    x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     o, k, v = _self(cfg, lp["self"], _norm(x, lp["self_norm"]), attn,
                     causal=True)
     x = x + o
@@ -168,8 +171,8 @@ def _dec_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 def _embed(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
            dt: torch.dtype) -> torch.Tensor:
     pe = params["pos_embed"]
-    return (params["embed"]["table"][tokens].to(dt)
-            + pe[positions % pe.shape[0]].to(dt))
+    return (L.embed_rows(params["embed"]["table"], tokens).to(dt)
+            + L.embed_rows(pe, positions % pe.shape[0]).to(dt))
 
 
 def _unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +184,6 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             self_attn: L.SelfAttention | None = None):
     """batch: tokens (B,S_dec) and frontend (B,T_enc,d).  Returns (logits,
     aux), aux a float32 zero."""
-    L.require_unsharded(cfg, "audio")
     tokens = batch["tokens"]
     attn = self_attn or L.attention
     enc = encode(cfg, params, batch["frontend"], self_attn=attn)
@@ -236,10 +238,10 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x, *kv = _dec_layer(cfg, lp, x, enc, attn)
         kvs.append([t.transpose(0, 1) for t in kv])
     kc, vc, xk, xv = (torch.stack(t) for t in zip(*kvs))
-    pad = (0, 0, 0, 0, 0, 0, 0, max_len - s)     # pad dim 1 (S) at the end
     logits = _unembed(params, _norm(x[:, -1], params["final_norm"]))
-    return logits, {"k": F.pad(kc, pad), "v": F.pad(vc, pad),
-                    "xk": xk, "xv": xv, "len": s}
+    return logits, {"k": L.pad_dim(kc, 1, max_len),
+                    "v": L.pad_dim(vc, 1, max_len), "xk": xk, "xv": xv,
+                    "len": s}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
@@ -256,14 +258,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         sp, cp = lp["self"], lp["cross"]
         h = _norm(x, lp["self_norm"])
         q = _heads(h, sp["wq"], cfg.n_heads, hd)
-        cache["k"][i, n] = _heads(h, sp["wk"], cfg.n_kv_heads, hd)[:, 0]
-        cache["v"][i, n] = _heads(h, sp["wv"], cfg.n_kv_heads, hd)[:, 0]
+        L.cache_write(cache["k"], (i, n),
+                      _heads(h, sp["wk"], cfg.n_kv_heads, hd)[:, 0])
+        L.cache_write(cache["v"], (i, n),
+                      _heads(h, sp["wv"], cfg.n_kv_heads, hd)[:, 0])
         o = L.decode_attention(q, cache["k"][i].transpose(0, 1),
                                cache["v"][i].transpose(0, 1), n + 1)
         x = x + _out(o, sp["wo"])
         q2 = _heads(_norm(x, lp["cross_norm"]), cp["wq"], cfg.n_heads, hd)
-        o2 = L.cross_attention(q2, cache["xk"][i].transpose(0, 1),
-                               cache["xv"][i].transpose(0, 1))
+        o2 = L.decode_attention(q2, cache["xk"][i].transpose(0, 1),
+                                cache["xv"][i].transpose(0, 1),
+                                cache["xk"].shape[1])   # every frame
         x = x + _out(o2, cp["wo"])
         x = x + L.mlp_gelu(lp, _norm(x, lp["mlp_norm"]))
     logits = _unembed(params, _norm(x[:, 0], params["final_norm"]))

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models.common import (ModelConfig, Params, ShardingPlan,
-                                       Specs, map_specs, tree_get, tree_map)
+                                       Specs, is_dtensor, map_specs, tree_get,
+                                       tree_map)
 
 # op classes the tuner knows, and the logical axes each one controls
 OP_CLASS_AXES: dict[str, tuple[str, ...]] = {
@@ -102,6 +103,25 @@ def distribute_tree(tree: Params, shardings) -> Params:
         return distribute_tensor(t.detach(), sh.mesh, sh.placements,
                                  src_data_rank=None)
     return tree_map(place, tree)
+
+
+def place_cache(cache: dict, shardings: dict) -> dict:
+    """A decode cache on its ``cache_shardings`` (same structure): a plain
+    tensor is distributed (every rank holds the same full cache and
+    keeps its slice, nothing is sent), a DTensor (a sharded prefill's
+    cache) is redistributed, and the int "len" stays an int."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(node, sh):
+        if isinstance(node, dict):
+            return {k: place(v, sh[k]) for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            return node
+        if is_dtensor(node):
+            return node.redistribute(sh.mesh, sh.placements)
+        return distribute_tensor(node, sh.mesh, sh.placements,
+                                 src_data_rank=None)
+    return place(cache, shardings)
 
 
 def degree_to_axes(degree: int, model_axes: tuple[tuple[str, int], ...]

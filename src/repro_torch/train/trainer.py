@@ -30,6 +30,7 @@ moments keep the parameters' placements.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections.abc import Callable
 
@@ -104,17 +105,19 @@ def _dtensor_mesh(tree: Params):
     return None
 
 
-def _shard_batch(x: torch.Tensor, mesh, batch_axes: tuple[str, ...]):
-    """(n_micro, B/n_micro, ...) -> a DTensor with dim 1 (each
-    microbatch's batch dim) sharded over ``batch_axes``.  ``x`` is the
-    same full batch on every rank: each keeps its slice."""
+def _shard_batch(x: torch.Tensor, mesh, batch_axes: tuple[str, ...],
+                 dim: int = 1):
+    """A DTensor with ``dim`` sharded over ``batch_axes``: dim 1 of a
+    microbatched (n_micro, B/n_micro, ...) tensor, dim 0 of a prefill's
+    or a decode step's (B, ...).  ``x`` is the same full batch on every
+    rank: each keeps its slice."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     names = tuple(mesh.mesh_dim_names)
     unknown = [a for a in batch_axes if a not in names]
     if unknown:
         raise ValueError(f"batch_axes {unknown} are not axes of the "
                          f"mesh {names}")
-    placements = tuple(Shard(1) if n in batch_axes else Replicate()
+    placements = tuple(Shard(dim) if n in batch_axes else Replicate()
                        for n in names)
     return distribute_tensor(x, mesh, placements, src_data_rank=None)
 
@@ -237,16 +240,49 @@ def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig):
     return eval_step
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def _serving(cfg: ModelConfig, params: Params, batch: dict):
+    """The context a serving step runs in and its batch: on DTensor
+    params, ``implicit_replication`` (plain tensors count as replicated)
+    and each batch tensor's rows sharded over ``cfg.batch_axes``; on
+    plain params, nothing and the batch as it is."""
+    mesh = _dtensor_mesh(params)
+    if mesh is None:
+        return contextlib.nullcontext(), batch
+    from torch.distributed.tensor.experimental import implicit_replication
+    if cfg.batch_axes:
+        batch = {k: v if is_dtensor(v) or not isinstance(v, torch.Tensor)
+                 else _shard_batch(v, mesh, tuple(cfg.batch_axes), dim=0)
+                 for k, v in batch.items()}
+    return implicit_replication(), batch
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int,
+                      cache_shardings: dict | None = None):
+    """(params, batch) -> (last-token logits, cache).  On DTensor params
+    the prompt's rows are sharded over ``cfg.batch_axes``, the logits come
+    back whole (a plain tensor) and, with ``cache_shardings`` (from
+    ``serving.kvcache.cache_shardings``), the cache is placed on them."""
     @torch.no_grad()
     def prefill_step(params: dict, batch: dict):
-        return zoo.prefill(cfg, params, batch, max_len)
+        ctx, batch = _serving(cfg, params, batch)
+        with ctx:
+            logits, cache = zoo.prefill(cfg, params, batch, max_len)
+            if cache_shardings is not None:
+                from repro_torch.sharding import place_cache
+                cache = place_cache(cache, cache_shardings)
+        return _plain(logits), cache
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig):
-    """One decode step: (params, cache, token, pos) -> (logits, cache)."""
+    """One decode step: (params, cache, token, pos) -> (logits, cache).
+    On DTensor params and a placed cache each rank writes its slice of
+    the new token's state in place; the logits come back whole."""
     @torch.no_grad()
     def serve_step(params: dict, cache: dict, token, pos):
-        return zoo.decode_step(cfg, params, cache, token, pos)
+        ctx, batch = _serving(cfg, params, {"token": token})
+        with ctx:
+            logits, cache = zoo.decode_step(cfg, params, cache,
+                                            batch["token"], pos)
+        return _plain(logits), cache
     return serve_step

@@ -37,5 +37,6 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                  "repro_torch.obs.perfetto", "repro_torch.core.runtime",
                  "repro_torch.core.autotune", "repro_torch.launch.mesh",
                  "repro_torch.sharding", "repro_torch.sharding.specs",
-                 "repro_torch.sharding.collective_matmul"):
+                 "repro_torch.sharding.collective_matmul",
+                 "repro_torch.serving.kvcache"):
         assert name in report["imported"]

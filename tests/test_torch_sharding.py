@@ -394,10 +394,24 @@ def test_train_step_with_batch_axes_needs_a_placed_state():
                                   "rwkv6-1.6b", "llama-3.2-vision-11b",
                                   "whisper-small"])
 def test_other_families_refuse_a_sharded_batch(arch):
+    """No family refuses a sharded batch any more (every family runs on
+    DTensors, ``tests/test_torch_multidevice.py``); on plain tensors a
+    config that names batch or sequence axes runs as the unsharded one,
+    its constraints passing the activations through."""
+    import torch
+    base = get_config(arch, smoke=True)
+    params = zoo.init(base, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, base.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens}
+    if zoo.needs_frontend(base):
+        batch["frontend"] = torch.randn(2, base.n_frontend_tokens,
+                                        base.d_model)
+    want, _ = zoo.forward(base, params, batch)
     for axes in ({"batch_axes": ("data",)}, {"seq_axes": ("model",)}):
-        cfg = dataclasses.replace(get_config(arch, smoke=True), **axes)
-        with pytest.raises(NotImplementedError, match="dense family"):
-            zoo.forward(cfg, {}, {})
+        cfg = dataclasses.replace(base, **axes)
+        got, _ = zoo.forward(cfg, params, batch)
+        assert torch.equal(got, want), axes
 
 
 def test_constraints_pass_plain_tensors_through():
