@@ -226,7 +226,24 @@ Phases, one JSON line each:
              what was allocated before the phase; within 10 %), counted
              flops by class against 6·N·T, and the measured median step
              against the roofline's ``step_s_overlapped`` (the share of it
-             the step reaches at most 1.05).
+             the step reaches at most 1.05).  One more row comes from the
+             multidevice child: the sharded olmo-1b step it ran, counted
+             on its (1, 1) mesh by the DTensor path (one rank's ops and
+             every dispatched collective), beside the card: peak within
+             10 %, share at most 1.05, and 0 collectives counted, equal
+             to the child's ``CommDebugMode`` count;
+  17. dryrun_mesh  a child process (``--dryrun-mesh``) over a fake
+             process group of its own counts every cell of the matrix on
+             the reference's 16x16 mesh (one rank's share; 256 ranks) at
+             ``depth_plan``'s depths where it gives any, against the
+             card's spec, and on 2x16x16 (512 ranks) every arch's
+             decode_32k and long_500k cells (``DRYRUN_MULTI_SHAPES``): a
+             ``dryrun_mesh_cell`` line a cell (roofline terms, dominant
+             term, one rank's peak and whether it fits the card,
+             collectives by kind, the step's ici and dci link bytes and
+             their time, the kv strategy, seconds) and a summary whose
+             ``ok`` needs every cell counted or skipped with the
+             reference's reason and none in error.
 Each slice zeroes every kernel's launch counter just before it serves and
 reads them just after; then runs its 8 prefill calls once more (the same
 waves, one new token each, so no decode) under ``torch.profiler`` and
@@ -1906,6 +1923,7 @@ def multidevice_child(tmp: str) -> dict:
         cfg = dataclasses.replace(cfg, batch_axes=("data",))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        mem_at_reset = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         shardings = named_sharding_tree(default_plan(), mesh,
                                         state_specs(cfg, tcfg))
@@ -1944,6 +1962,10 @@ def multidevice_child(tmp: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         placements = sorted({str(t.placements)
                              for t in tree_leaves(state["params"])})
+        vs_card = sharded_step_vs_card(
+            mesh, cfg, tcfg, card_peak=peak - mem_at_reset,
+            card_step_s=statistics.median(times[1:]),
+            card_collectives=comms["total"])
         # one more step under the profiler: the device's share of its wall
         t0 = time.perf_counter()
         trace = profile_train_step(step, state, batch, cfg.arch_id)
@@ -1998,9 +2020,56 @@ def multidevice_child(tmp: str) -> dict:
                 "traced_step": traced,
                 "checkpoint": {"exact": exact, "bytes": ck_bytes,
                                "save_s": save_s, "restore_s": restore_s},
-                "ring_ag_matmul": ring, "families": families}
+                "ring_ag_matmul": ring, "families": families,
+                "dryrun_vs_card": vs_card}
     finally:
         dist.destroy_process_group()
+
+
+def sharded_step_vs_card(mesh, cfg, tcfg, *, card_peak: int,
+                         card_step_s: float, card_collectives: int) -> dict:
+    """The ``dryrun_vs_card`` row of the sharded olmo-1b step: the step
+    the multidevice child just ran, counted on meta on the same mesh by
+    ``launch.dryrun.lower_cell`` (the DTensor count: one rank's ops, its
+    kernels on local shapes, every collective it dispatches), beside the
+    card: predicted peak against ``max_memory_allocated`` less what was
+    allocated before the state was made (within 10 %), the roofline's
+    ``step_s_overlapped`` against the median step (a share of at most
+    1.05), and the counted collectives, which must be 0 and equal the
+    child's ``CommDebugMode`` count."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.hw import H100Spec
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import default_plan
+
+    shape = ShapeSpec("olmo-1b sharded train", "train", TRAIN_SEQ,
+                      TRAIN_BATCH)
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(cfg, shape, mesh, plan=default_plan(),
+                            tcfg=tcfg, spec=H100Spec.from_device(0))
+    r = rec["roofline"]
+    counted = sum(k["count"] for k in rec["collectives"]["by_kind"].values())
+    row = {"phase": "dryrun_vs_card", "cell": shape.name,
+           "mesh": rec["mesh"], "B": shape.global_batch, "S": shape.seq_len,
+           "microbatches": tcfg.microbatches,
+           "predicted_peak_bytes": rec["peak_bytes"],
+           "card_peak_bytes": card_peak,
+           "peak_ratio": rec["peak_bytes"] / card_peak,
+           "flops_by_dtype": rec["flops_by_dtype"],
+           "kernel_calls": {k: v["calls"] for k, v in rec["kernels"].items()},
+           "counted_over_model_flops": 1.0 / rec["useful_flops_ratio"],
+           "bytes": rec["bytes_per_device"],
+           "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+           "collective_s": r["collective_s"], "dominant": r["dominant"],
+           "step_s_overlapped": r["step_s_overlapped"],
+           "card_step_s": card_step_s,
+           "share": r["step_s_overlapped"] / card_step_s,
+           "collectives_counted": counted,
+           "collectives_card": card_collectives,
+           "count_s": time.perf_counter() - t0}
+    row["ok"] = (abs(row["peak_ratio"] - 1.0) <= 0.10 and row["share"] <= 1.05
+                 and counted == card_collectives == 0)
+    return row
 
 
 def multidevice(train: dict) -> dict:
@@ -2045,6 +2114,9 @@ def multidevice(train: dict) -> dict:
         fam["phase"] = "multidevice_family"
         fam["ok"] = multidevice_family_ok(fam)
         emit(fam)
+    vs_card = line.pop("dryrun_vs_card")
+    emit(vs_card)
+    line["dryrun_vs_card_ok"] = vs_card["ok"]
     line["families_ok"] = {f["arch"]: f["ok"] for f in families}
     line["launches_by_family"] = {f["arch"]: f["launches_sharded"]
                                   for f in families}
@@ -2056,6 +2128,7 @@ def multidevice(train: dict) -> dict:
                   and line["launches"] == line["expected_launches"]
                   and len(families) == 1 + len(MULTI_SERVE)
                   and all(f["ok"] for f in families)
+                  and vs_card["ok"]
                   and wall <= MULTI_TIMEOUT_S)
     emit(line)
     assert line["ok"], line
@@ -2126,6 +2199,122 @@ def dryrun_matrix(spec) -> dict:
     emit(result)
     assert result["ok"], result
     return result
+
+
+# the dryrun_mesh phase: every cell of the reference's matrix on its 16x16
+# mesh, and on 2x16x16 every arch's cells of these shapes.  On 2x16x16
+# DTensor's sharding propagation takes minutes a train cell on the CPU (PERF.md
+# section 6, PR 24), so one train cell a family would not fit the phase;
+# ``python -m repro_torch.launch.dryrun --mesh multi`` counts them all.  The
+# child's time limit
+DRYRUN_MULTI_SHAPES = ("decode_32k", "long_500k")
+DRYRUN_MESH_TIMEOUT_S = 600
+
+
+def dryrun_mesh_cell(rec: dict, wall: float) -> dict:
+    """One line of the dryrun_mesh phase: a counted cell's roofline terms,
+    dominant term, one rank's peak and whether it fits the card, its
+    collectives by kind (the counted step: one microbatch, or the deeper
+    of the two extrapolation depths) with the step's ici and dci link
+    bytes and their time, the decode cache's strategy and the seconds the
+    cell took; or the reference's reason to skip it; or its error."""
+    head = {"phase": "dryrun_mesh_cell", "mesh": rec["mesh_name"]
+            if "roofline" in rec else rec["mesh"], "arch": rec["arch"],
+            "shape": rec["shape"], "count_s": wall}
+    if "skipped" in rec:
+        return {**head, "skipped": rec["skipped"]}
+    if "error" in rec:
+        return {**head, "error": rec["error"],
+                "traceback_tail": rec["traceback"][-2000:]}
+    r, c = rec["roofline"], rec["collectives"]
+    return {**head, "kind": rec["kind"], "devices": rec["devices"],
+            "microbatches": rec["microbatches"],
+            "extrapolated_from": rec.get("cost_extrapolated_from"),
+            "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+            "collective_s": r["collective_s"], "dominant": r["dominant"],
+            "step_s_overlapped": r["step_s_overlapped"],
+            "peak_bytes": rec["hbm_bytes_per_device_est"],
+            "fits_hbm": rec["fits_hbm"],
+            "by_kind_counted": c["by_kind"],
+            "ici_link_bytes_step": c["ici_link_bytes_step"],
+            "dci_link_bytes_step": c["dci_link_bytes_step"],
+            "kv_strategy": rec.get("kv_strategy"),
+            "useful_flops_ratio": rec["useful_flops_ratio"]}
+
+
+def dryrun_mesh_child() -> dict:
+    """The dryrun_mesh phase's child: the reference's matrix counted by
+    ``launch.dryrun.run_cells`` on its 16x16 mesh (one rank's share over
+    a fake world of 256 ranks, ``launch.mesh.count_mesh``; no collective
+    runs) at ``depth_plan``'s depths where it gives any, against the
+    card's spec, then on 2x16x16 (512 ranks) every arch's cells of
+    ``DRYRUN_MULTI_SHAPES``; a line a cell as it is counted.  Returns the
+    summary: cells counted, skipped with the reference's reason, in
+    error, fitting the card, seconds a mesh."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.hw import H100Spec
+    from repro_torch.launch import dryrun
+
+    spec = H100Spec.from_device(0)
+    runs = [("single", [(a, s) for a in ARCH_IDS for s in SHAPES]),
+            ("multi", [(a, s) for a in ARCH_IDS
+                       for s in DRYRUN_MULTI_SHAPES])]
+    summary = {"phase": "dryrun_mesh", "spec": dataclasses.asdict(spec),
+               "meshes": {}}
+    for mesh_name, cells in runs:
+        records, last = [], [time.perf_counter()]
+        t0 = last[0]
+
+        def line(rec, records=records, last=last):
+            now = time.perf_counter()
+            records.append(rec)
+            emit(dryrun_mesh_cell(rec, now - last[0]))
+            last[0] = now
+
+        for arch, shape in cells:
+            dryrun.run_cells([arch], [shape], None, [mesh_name], spec=spec,
+                             extrapolate=True, verbose=False,
+                             on_record=line)
+        counted = [r for r in records if "roofline" in r]
+        summary["meshes"][mesh_name] = {
+            "cells": len(records), "counted": len(counted),
+            "skipped": sum("skipped" in r for r in records),
+            "errors": [f"{r['arch']} {r['shape']}" for r in records
+                       if "error" in r],
+            "fit": [f"{r['arch']} {r['shape']}" for r in counted
+                    if r["fits_hbm"]],
+            "dominant": {k: sum(r["roofline"]["dominant"] == k
+                                for r in counted)
+                         for k in ("compute", "memory", "collective")},
+            "seconds": time.perf_counter() - t0}
+    summary["ok"] = all(m["cells"] == m["counted"] + m["skipped"]
+                        and not m["errors"]
+                        for m in summary["meshes"].values()) and \
+        summary["meshes"]["single"]["cells"] == len(ARCH_IDS) * len(SHAPES)
+    return summary
+
+
+def dryrun_mesh() -> dict:
+    """The dryrun_mesh phase: ``dryrun_mesh_child`` in a process of its
+    own (a fake process group of its own), its lines relayed; the
+    summary's ``ok`` needs every cell counted or skipped with the
+    reference's reason and none in error.  A cell that fails to count
+    fails the phase and the run."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--dryrun-mesh"], capture_output=True, text=True,
+                         timeout=DRYRUN_MESH_TIMEOUT_S,
+                         stdin=subprocess.DEVNULL)
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    for ln in lines[:-1]:
+        emit(ln)
+    assert out.returncode == 0 and lines, (out.returncode,
+                                           out.stderr[-4000:])
+    summary = {**lines[-1], "wall_s": time.perf_counter() - t0}
+    emit(summary)
+    assert summary["ok"], summary
+    return summary
 
 
 # the olmo-1b served prefill the dry-run is held to: the olmo-1b slice's
@@ -2621,6 +2810,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--multidevice"]:
         emit(multidevice_child(sys.argv[2]))
         return 0
+    if sys.argv[1:2] == ["--dryrun-mesh"]:
+        emit(dryrun_mesh_child())
+        return 0
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2826,6 +3018,8 @@ def main() -> int:
     spec = H100Spec.from_device(0)
     dryrun_matrix(spec)
     dryrun_vs_card(dev, spec, train, moe_train)
+    # 17. the dry-run on the reference's meshes, in a child of its own
+    dryrun_mesh()
 
     # 13. kernels line, card line, result -------------------------------------
     by_path = {"olmo-1b": olmo["launches"]["flash_attention"],

@@ -27,6 +27,18 @@ dtypes and adds its ``cost`` (``add_kernel``), and ``layers.attention``
 routes meta self-attention to flash as it routes CUDA tensors.  Outside a
 counter a meta tensor still raises in the wrappers.
 
+On DTensors the counter counts what ONE rank runs (the rank of the
+process group the mesh is built on; the dry-run's fake world is rank 0):
+an op on DTensors is left to DTensor (``NotImplemented``), which runs it
+on the local tensors, and those local ops are counted as above, the
+kernels by their ``cost`` on local shapes.  The ops DTensor's sharding
+propagation runs on ``FakeTensor``s of the global shape are run and not
+counted.  The live trees passed in count by their local tensors.  Every
+collective dispatched inside (DTensor's redistributions, the layers'
+explicit reductions) is recorded by ``hw.comm.dispatched_collective``
+with the counter's ``pod_size``; ``collective_stats()`` sums them as the
+reference's ``parse_collectives`` does.
+
 What the counter cannot see: allocations inside an op's implementation
 (a CUDA op's workspace, a composite op's intermediates below the Python
 dispatcher), the CUDA caching allocator's rounding, and elementwise flops
@@ -44,6 +56,8 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.hw.comm import (CollectiveOp, CollectiveStats,
+                                 dispatched_collective)
 from repro_torch.hw.spec import matmul_class
 
 _aten = torch.ops.aten
@@ -53,6 +67,10 @@ _FREE = {_aten.empty, _aten.empty_like, _aten.empty_strided, _aten.new_empty,
          _aten.set_, _aten.resize_}
 # ops that write their first argument without reading it
 _WRITE_ONLY = {_aten.copy_, _aten.fill_, _aten.zero_}
+# ``CostCounter.repeat``'s counts, by key, for every counter
+_MEMO: dict = {}
+# GEMMs whose global flops a DTensor op gives from its shapes alone
+_GEMMS = {_aten.mm, _aten.bmm, _aten.addmm, _aten.baddbmm}
 
 
 def tensor_leaves(tree, out: list | None = None) -> list:
@@ -67,6 +85,12 @@ def tensor_leaves(tree, out: list | None = None) -> list:
         for x in tree.values():
             tensor_leaves(x, out)
     return out
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor on this rank; any other tensor as it
+    is."""
+    return t._local_tensor if hasattr(t, "_local_tensor") else t
 
 
 def addressed_bytes(t: torch.Tensor) -> int:
@@ -91,10 +115,24 @@ class CostCounter(TorchDispatchMode):
     ``flops``: peak class -> flops (GEMMs and kernels); ``matmul_flops``:
     the GEMMs' share alone; ``kernels``: name -> calls, flops, bytes of
     the port's kernels counted by their ``cost``; ``bytes``: all bytes
-    moved; ``live`` and ``peak``: live storage bytes now and at most."""
+    moved; ``live`` and ``peak``: live storage bytes now and at most;
+    ``collectives``: the ``CollectiveOp`` of each collective, its group
+    crossing blocks of ``pod_size`` ranks or not, and beside it in
+    ``collective_groups`` its group's ranks; ``ops``: aten op name
+    -> dispatches counted; ``replicated``: each GEMM of DTensors whose
+    local share is more than its 1/n of the global GEMM (n the mesh's
+    size), as (op, global shapes, local flops, global flops / n): work a
+    rank repeats that other ranks also run."""
 
-    def __init__(self, *live_trees):
+    def __init__(self, *live_trees, pod_size: int | None = None):
         super().__init__()
+        self.pod_size = pod_size
+        self.collectives: list[CollectiveOp] = []
+        self.collective_groups: list[tuple[int, ...]] = []
+        self.ops: dict[str, int] = defaultdict(int)
+        self.replicated: list[tuple] = []
+        self._skip = _subclasses_not_counted()
+        self._global_gemm = None
         self.flops: dict[str, float] = defaultdict(float)
         self.matmul_flops: dict[str, float] = defaultdict(float)
         self.kernels: dict[str, dict] = {}
@@ -103,12 +141,12 @@ class CostCounter(TorchDispatchMode):
         self.peak = 0
         self._lock = threading.Lock()
         self._storages: dict[int, weakref.finalize] = {}
-        self._memo: dict = {}
         for t in tensor_leaves(live_trees, []):
             self._track(t)
 
     # ---- live storage -------------------------------------------------
     def _track(self, t: torch.Tensor) -> None:
+        t = local_tensor(t)
         if t.layout != torch.strided:
             return
         st = t.untyped_storage()
@@ -133,11 +171,34 @@ class CostCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # ---- counting -------------------------------------------------------
+    def collective_stats(self) -> CollectiveStats:
+        return CollectiveStats(ops=list(self.collectives))
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dtensor, fake = self._skip
+        if dtensor is not None and any(issubclass(t, dtensor) for t in types):
+            if func._overloadpacket in _GEMMS:
+                # the share of the global GEMM its local GEMM should take
+                self._global_gemm = (
+                    func._overloadpacket,
+                    tuple(tuple(t.shape) for t in tensor_leaves(args, [])),
+                    float(flop_registry[func._overloadpacket](
+                        *args, **(kwargs or {}), out_val=None))
+                    / next(t.device_mesh.size() for t in tensor_leaves(
+                        args, []) if isinstance(t, dtensor)))
+            return NotImplemented        # DTensor runs it on local tensors
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        packet = func._overloadpacket
         outs = tensor_leaves(out, [])
+        if any(issubclass(t, fake) for t in types) or any(
+                isinstance(t, fake) for t in outs):
+            return out                   # sharding propagation's fake ops
+        coll = dispatched_collective(func, args, kwargs, out, self.pod_size)
+        if coll is not None:
+            self.collectives.append(coll[0])
+            self.collective_groups.append(tuple(coll[1]))
+        packet = func._overloadpacket
+        self.ops[str(packet)] += 1
         for t in outs:
             self._track(t)
         if packet in flop_registry:
@@ -146,6 +207,12 @@ class CostCounter(TorchDispatchMode):
             f = float(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops[cls] += f
             self.matmul_flops[cls] += f
+            share = self._global_gemm
+            if share is not None and share[0] is packet:
+                self._global_gemm = None
+                if f > share[2]:
+                    self.replicated.append((str(packet), share[1], f,
+                                            share[2]))
         if packet in _FREE or _is_view(func):
             return out
         ins = tensor_leaves((args, kwargs), [])
@@ -173,10 +240,14 @@ class CostCounter(TorchDispatchMode):
         same key does not run ``fn``: it adds the first call's flops,
         bytes and rise of the peak above the live bytes, and returns new
         tensors of its outputs' shapes, dtypes and strides.  For meta work
-        only, whose count depends on shapes alone: the backward of a
+        only, whose count depends on shapes alone (local work: no
+        collective is recorded again): the backward of a
         recurrence's plain per-step loop, the same in every layer, is
-        counted once a shape."""
-        memo = self._memo.get(key)
+        counted once a shape, and once a process (every counter shares the
+        memo: a dry-run counts the same layer shapes at two depths and in
+        many cells)."""
+        key = (key, torch.backends.cuda.matmul.allow_tf32)
+        memo = _MEMO.get(key)
         if memo is None:
             flops, matmul, nbytes = (dict(self.flops),
                                      dict(self.matmul_flops), self.bytes)
@@ -188,7 +259,7 @@ class CostCounter(TorchDispatchMode):
             layout = [None if t is None else
                       (tuple(t.shape), t.stride(), t.dtype, t.device)
                       for t in out]
-            self._memo[key] = (
+            _MEMO[key] = (
                 {k: v - flops.get(k, 0.0) for k, v in self.flops.items()},
                 {k: v - matmul.get(k, 0.0)
                  for k, v in self.matmul_flops.items()},
@@ -204,6 +275,15 @@ class CostCounter(TorchDispatchMode):
             self.peak = max(self.peak, self.live + rise)
         return tuple(None if lay is None else torch.empty_strided(
             lay[0], lay[1], dtype=lay[2], device=lay[3]) for lay in layout)
+
+
+def _subclasses_not_counted() -> tuple:
+    """(DTensor or None where torch has no distributed, FakeTensor)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    dtensor = None
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor as dtensor
+    return dtensor, FakeTensor
 
 
 def current() -> CostCounter | None:

@@ -1,7 +1,8 @@
 """Hardware constants of one NVIDIA H100 and the roofline arithmetic.
 
 The port's counterpart of ``repro.hw.spec.TpuV5eSpec``: the peak rates
-are the data sheet's (SXM part, dense, at the full 700 W power limit); the
+and NVLink's are the data sheet's (SXM part, dense, at the full 700 W
+power limit), the network's the DGX H100 user guide's; the
 name, memory size and SM count can be read from the card
 (``H100Spec.from_device``).  ``compute_time`` takes flops by peak class,
 because one H100 step mixes classes 15 times apart in rate: bf16 on the
@@ -27,6 +28,15 @@ H100_PEAK_FP32_FLOPS = 67e12       # fp32 outside the tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12     # HBM3
 H100_HBM_BYTES = 80 * 10**9
 H100_SMS = 132
+# NVLink 4: 900 GB/s a GPU, both directions together (NVIDIA H100 SXM
+# data sheet); each way half of it
+H100_NVLINK_BYTES_PER_S = 450e9
+# the network across nodes: one 400 Gb/s NDR InfiniBand port a GPU
+# (NVIDIA DGX H100 user guide: eight ConnectX-7 ports for eight GPUs),
+# 50 GB/s each way
+H100_NETWORK_BYTES_PER_S = 400e9 / 8
+# GPUs that NVLink joins all to all: one HGX H100 / DGX H100 node
+H100_GPUS_PER_NODE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +50,9 @@ class H100Spec:
     hbm_bandwidth: float = H100_HBM_BYTES_PER_S
     hbm_bytes: int = H100_HBM_BYTES
     sms: int = H100_SMS
+    nvlink_bandwidth: float = H100_NVLINK_BYTES_PER_S
+    network_bandwidth: float = H100_NETWORK_BYTES_PER_S
+    gpus_per_node: int = H100_GPUS_PER_NODE
 
     @classmethod
     def from_device(cls, dev: int | str | torch.device = 0) -> "H100Spec":
@@ -69,13 +82,12 @@ class H100Spec:
 
     def collective_time(self, ici_bytes_per_device: float,
                         dci_bytes_per_device: float = 0.0) -> float:
-        """Kept as the reference's; one card moves nothing between cards,
-        so every caller passes 0 until the multi-device slice."""
-        if ici_bytes_per_device or dci_bytes_per_device:
-            raise NotImplementedError(
-                "collective_time: link rates arrive with the port's "
-                "multi-device slice")
-        return 0.0
+        """The reference's form: link bytes inside a node (``ici``, groups
+        within ``gpus_per_node`` GPUs, ``hw.comm``) over NVLink, and those
+        of groups spanning nodes (``dci``) over the network, one after
+        the other."""
+        return (ici_bytes_per_device / self.nvlink_bandwidth
+                + dci_bytes_per_device / self.network_bandwidth)
 
 
 H100 = H100Spec()

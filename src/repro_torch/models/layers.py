@@ -51,15 +51,20 @@ from repro_torch.kernels.rglru import rglru, rglru_plain
 from repro_torch.models.common import is_dtensor
 
 
-def _batch_placements(mesh, ndim: int, batch_axes: tuple,
+def _batch_placements(mesh, shape: tuple, batch_axes: tuple,
                       seq_axes: tuple) -> tuple:
-    """One placement a mesh dim: Shard(0) on the batch axes, Shard(1) on
-    the sequence axes (a tensor of 2 dims or more), Replicate elsewhere."""
+    """One placement a mesh dim: Shard(0) on the batch axes whose ranks
+    divide the rows (``launch.mesh.dividing_axes``), Shard(1) on the
+    sequence axes (a tensor of 2 dims or more), Replicate elsewhere."""
     from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import dividing_axes
     names = tuple(mesh.mesh_dim_names)
     unknown = [a for a in (*batch_axes, *seq_axes) if a not in names]
     if unknown:
         raise ValueError(f"axes {unknown} are not axes of the mesh {names}")
+    batch_axes = dividing_axes(shape[0], mesh, tuple(batch_axes))
+    ndim = len(shape)
     return tuple(Shard(0) if n in batch_axes
                  else Shard(1) if n in seq_axes and ndim >= 2
                  else Replicate() for n in names)
@@ -83,29 +88,36 @@ def constrain_batch(x: torch.Tensor, batch_axes: tuple,
     if (not batch_axes and not seq_axes) or not is_dtensor(x):
         return x
     return x.redistribute(x.device_mesh, _batch_placements(
-        x.device_mesh, x.ndim, tuple(batch_axes), tuple(seq_axes)))
+        x.device_mesh, tuple(x.shape), tuple(batch_axes), tuple(seq_axes)))
 
 
 class _SeqBoundary(torch.autograd.Function):
     """Identity whose forward pins the primal's placement and whose
-    backward passes the cotangent on as it comes."""
+    backward passes the cotangent on with its sequence gathered (its
+    batch split kept): the GEMM behind the boundary flattens (B, S) in
+    its backward, which torch 2.11's DTensor refuses with S split."""
 
     @staticmethod
     def forward(ctx, x, batch_axes, seq_axes):
+        ctx.batch_axes, ctx.seq_axes = batch_axes, seq_axes
         return constrain_batch(x, batch_axes, seq_axes)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.seq_axes:
+            g = constrain_batch(g, ctx.batch_axes, ())
         return g, None, None
 
 
 def seq_boundary(x: torch.Tensor, batch_axes: tuple, seq_axes: tuple
                  ) -> torch.Tensor:
     """Sequence-parallel boundary: constrain the PRIMAL to (batch,
-    seq-sharded) but leave the COTANGENT unconstrained, as the reference's
-    custom VJP does (pinning the cotangent too forces seq-sharded
-    weight-gradient contractions that conflict with the tensor-parallel
-    sharding on the same mesh axis).  A no-op as ``constrain_batch``."""
+    seq-sharded), and the COTANGENT to the batch split alone: the
+    reference's custom VJP leaves it unconstrained (pinning it
+    seq-sharded too forces seq-sharded weight-gradient contractions that
+    conflict with the tensor-parallel sharding on the same mesh axis),
+    which on DTensor leaves it seq-sharded.  A no-op as
+    ``constrain_batch``."""
     if (not batch_axes and not seq_axes) or not is_dtensor(x):
         return x
     return _SeqBoundary.apply(x, tuple(batch_axes), tuple(seq_axes))
@@ -155,7 +167,7 @@ def on_ranks(fn: Callable, args: tuple, layouts: tuple, out_layouts,
         pl = _letters_placements(letters, lay)
         grad = tuple(Partial() if c is not None and c not in lay else p
                      for c, p in zip(letters, pl))
-        local.append(a.redistribute(mesh, pl).to_local(grad_placements=grad))
+        local.append(to_local(a, pl, grad))
     outs = fn(*local, **kw)
     single = isinstance(out_layouts, str)
     wrapped = []
@@ -173,16 +185,56 @@ def on_ranks(fn: Callable, args: tuple, layouts: tuple, out_layouts,
     return wrapped[0] if single else tuple(wrapped)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands its cotangent on in the contiguous
+    layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def to_local(a: torch.Tensor, placements: tuple, grad_placements=None
+             ) -> torch.Tensor:
+    """This rank's local tensor of DTensor ``a`` redistributed to
+    ``placements``; its gradient goes back as a DTensor of
+    ``grad_placements`` (default: ``placements``, a ``Partial`` as a
+    ``Replicate``).
+
+    The gradient is made contiguous on its way back: DTensor runs each
+    op on the local tensors but takes the output's global stride from
+    its propagation on the global shape, which assumes the contiguous
+    layout of its inputs, and later picks a view or a copy for a reshape
+    by that global stride alone.  A local gradient in another layout
+    breaks that.  With one head a rank, the backward of the attention
+    scores' einsum (``_attention_dense``, its bmm) gives k's local
+    gradient in (b, d, s) layout; the ``cat`` of RoPE's backward keeps
+    it locally while DTensor records the contiguous stride, and the
+    reshape of ``split_heads``' backward then views a local tensor that
+    cannot be viewed.
+    """
+    local = a.redistribute(a.device_mesh, tuple(placements)).to_local(
+        grad_placements=grad_placements)
+    return _ContiguousGrad.apply(local)
+
+
 def _wrap_local(o: torch.Tensor, mesh, placements: tuple, shape: tuple
                 ) -> torch.Tensor:
     """The DTensor of global ``shape`` whose local tensor on this rank is
     ``o`` (made contiguous: the global stride given is the contiguous
     one), without a collective."""
     from torch.distributed.tensor import DTensor
-    shape = torch.Size(shape)
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
     return DTensor.from_local(
         o.contiguous(), mesh, tuple(placements), run_check=False,
-        shape=shape, stride=torch.empty(shape, device="meta").stride())
+        shape=torch.Size(shape), stride=tuple(stride))
 
 
 class _ReducedGrad(torch.autograd.Function):
@@ -212,11 +264,10 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
         for p in x.placements))
 
 
-def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(..., n*hd) -> (..., n, hd).  A DTensor whose last dim is split
+def _whole_heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` (..., n*hd) with its last dim gathered where it is split
     over more pieces than ``n`` heads divide (2 kv heads on a model dim
-    of 4) is gathered on that dim first, as GSPMD reshards the
-    reference's reshape."""
+    of 4, whisper's 12 heads on 16); anything else as it is."""
     if is_dtensor(t):
         from torch.distributed.tensor import Shard
         pieces = math.prod(t.device_mesh.size(i)
@@ -224,7 +275,42 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
                            if p == Shard(t.ndim - 1))
         if n % pieces:
             t = gather_dim(t, -1)
+    return t
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n*hd) -> (..., n, hd).  A DTensor whose last dim is split
+    over more pieces than ``n`` heads divide (2 kv heads on a model dim
+    of 4) is gathered on that dim first, as GSPMD reshards the
+    reference's reshape."""
+    t = _whole_heads(t, n)
     return t.reshape(*t.shape[:-1], n, hd)
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """Identity whose backward gathers a cotangent split over more pieces
+    than its ``n`` heads divide (``_whole_heads``)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.n), None
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(..., n, hd) -> (..., n*hd), ``split_heads``' inverse.  On
+    DTensors the output projection may take the merged dim split over
+    the model axis (a local slice where the heads were whole), and the
+    cotangent then comes back split so; where the pieces do not divide
+    the ``n`` heads (whisper's 12 on 16) it is gathered before the
+    reshape's backward, which could not unflatten it."""
+    n, hd = o.shape[-2:]
+    y = o.reshape(*o.shape[:-2], n * hd)
+    return _WholeHeadsGrad.apply(y, n) if is_dtensor(y) else y
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -485,10 +571,9 @@ def _attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kp = [Replicate() if b == Shard(2) else b for b in kp]
     grad = tuple(Partial() if a == Shard(2) and b != Shard(2) else b
                  for a, b in zip(qp, kp))
-    ql = q.redistribute(mesh, tuple(qp)).to_local()
-    kl, vl = ((t if is_dtensor(t) else DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False))
-        .redistribute(mesh, tuple(kp)).to_local(grad_placements=grad)
+    ql = to_local(q, tuple(qp))
+    kl, vl = (to_local(t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False), tuple(kp), grad)
         for t in (k, v))
     if whole_kv:
         hl = ql.shape[2]

@@ -189,8 +189,7 @@ def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
 
 def _attn_out(cfg: ModelConfig, lp: dict, x: torch.Tensor, o: torch.Tensor
               ) -> torch.Tensor:
-    b, s = x.shape[:2]
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["wo"].to(x.dtype)
+    x = x + L.merge_heads(o) @ lp["wo"].to(x.dtype)
     h2 = L.rms_norm(x, lp["mlp_norm"])
     return x + _geglu(lp, h2)
 

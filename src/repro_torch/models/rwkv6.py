@@ -130,7 +130,7 @@ def _wkv(r, k, v, w, u, state0, wkv_fn: WkvFn | None):
     split, a split sequence is gathered, and the same wrapper (on CUDA
     the kernel) runs on the local tensors."""
     if is_dtensor(r):
-        return L.on_ranks(_wkv, (r, k, v, w, u, state0, wkv_fn),
+        return L.on_ranks(_wkv_local, (r, k, v, w, u, state0, wkv_fn),
                           ("bhsd", "bhsd", "bhsd", "bhsd", "hd", "bhde",
                            None), ("bhsd", "bhde"), keep="bh")
     if state0 is None:
@@ -139,6 +139,18 @@ def _wkv(r, k, v, w, u, state0, wkv_fn: WkvFn | None):
                               torch.clamp(w[:, :, 0].float(), WKV_FLOOR, 1.0),
                               u, state0)
     return out[:, :, None], state
+
+
+def _wkv_local(r, k, v, w, u, state0, wkv_fn: WkvFn | None):
+    """``_wkv`` of one rank's local tensors, r, k, v and w in one layout:
+    the WKV6 wrapper reads all four through one set of strides, and
+    ``on_ranks`` gives a new contiguous (B,H,S,D) tensor for an input it
+    had to redistribute (w, which DTensor leaves split along the
+    sequence over "model" after its LoRA, gathered and split by heads)
+    beside views of the (B,S,H,D) projections for the rest."""
+    if any(t.stride() != r.stride() for t in (k, v, w)):
+        r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    return _wkv(r, k, v, w, u, state0, wkv_fn)
 
 
 def _time_mix(cfg: ModelConfig, lp: dict, x: torch.Tensor,

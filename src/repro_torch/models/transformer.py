@@ -150,7 +150,6 @@ def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     seq-sharded boundary before the residual add, as the reference's
     ``_layer``."""
     dt = x.dtype
-    b, s, _ = x.shape
     hd = cfg.hd
     h = _norm(cfg, x, lp["attn_norm"])
     if cfg.seq_axes:
@@ -161,7 +160,7 @@ def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
-    o = o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
+    o = L.merge_heads(o) @ lp["wo"].to(dt)
     if cfg.seq_axes:
         o = L.seq_boundary(o, cfg.batch_axes, cfg.seq_axes)  # RS back
     return x + o, k, v
@@ -221,6 +220,11 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
             auxes.append(layer_aux)
     aux = (torch.stack(auxes).sum() if auxes else
            torch.zeros((), dtype=torch.float32, device=x.device))
+    if cfg.seq_axes:
+        # the sequence gathered into the unembed, as each block gathers
+        # it into its projections: torch 2.11's DTensor flattens no (B, S)
+        # pair with S split for the logits' GEMM
+        x = L.constrain_batch(x, cfg.batch_axes, ())
     x = _norm(cfg, x, params["final_norm"])
     if last_only:
         x = x[:, -1:]

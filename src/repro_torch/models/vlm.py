@@ -125,12 +125,11 @@ def _cross_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     which reads a placed cache rank by rank)."""
     x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     dt = x.dtype
-    b, s, _ = x.shape
     hd = cfg.hd
     h = L.rms_norm(x, lp["norm"])
     q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
     o = attend(q, img_k, img_v)
-    o = o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
+    o = L.merge_heads(o) @ lp["wo"].to(dt)
     x = x + _gate(lp["gate_attn"], dt) * o
     m = L.mlp_swiglu(lp, L.rms_norm(x, lp["mlp_norm"]))
     return x + _gate(lp["gate_mlp"], dt) * m

@@ -109,8 +109,7 @@ def _heads(x: torch.Tensor, w: torch.Tensor, n: int, hd: int
 
 
 def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    b, s, h, hd = o.shape
-    return o.reshape(b, s, h * hd) @ w.to(o.dtype)
+    return L.merge_heads(o) @ w.to(o.dtype)
 
 
 def _self(cfg: ModelConfig, lp: dict, h: torch.Tensor,

@@ -110,15 +110,23 @@ def _shard_batch(x: torch.Tensor, mesh, batch_axes: tuple[str, ...],
     """A DTensor with ``dim`` sharded over ``batch_axes``: dim 1 of a
     microbatched (n_micro, B/n_micro, ...) tensor, dim 0 of a prefill's
     or a decode step's (B, ...).  ``x`` is the same full batch on every
-    rank: each keeps its slice."""
+    rank: each keeps its slice; a batch already placed (a DTensor, as the
+    dry-run places it) is redistributed.  Rows that the batch axes'
+    ranks do not divide go over those that do
+    (``launch.mesh.dividing_axes``)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import dividing_axes
     names = tuple(mesh.mesh_dim_names)
     unknown = [a for a in batch_axes if a not in names]
     if unknown:
         raise ValueError(f"batch_axes {unknown} are not axes of the "
                          f"mesh {names}")
+    batch_axes = dividing_axes(x.shape[dim], mesh, tuple(batch_axes))
     placements = tuple(Shard(dim) if n in batch_axes else Replicate()
                        for n in names)
+    if is_dtensor(x):
+        return x.redistribute(mesh, placements)
     return distribute_tensor(x, mesh, placements, src_data_rank=None)
 
 

@@ -25,12 +25,18 @@ Every test reads its part of the one report, so each case counts:
     two summation orders leave on either side of it would move by 2 lr;
     with eps 1e-3 the move is a smooth function of g, so the gap in the
     new params stays of the order of the gap in g;
+(c') the same fp32 step with one attention head a rank, olmo-1b smoke
+    with ``n_heads = n_kv_heads`` = the model degree on (1, 2) and
+    (2, 2), and GQA with one q head a rank (4 q heads on 2 kv heads on
+    (1, 4)): within 1e-5 of the unsharded port's step and the
+    reference's;
 (d) the elastic checkpoint: saved on a (4,) mesh, restored onto (2, 2),
     and the step's sharded state saved from (2, 2) and restored
     replicated onto (4,): arrays equal;
 (e) this process has no process group afterwards.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -58,7 +64,10 @@ RANKS = 4
 TIMEOUT_S = 300
 B, S, MICRO = 8, 16, 2
 LR, EPS = 1e-3, 1e-3
-STEP_CASES = ("fp32", "bf16", "seq")
+# (c') one head a rank: mesh, n_heads, n_kv_heads
+HEAD_CASES = {"one-head-1x2": ([1, 2], 2, 2), "one-head-2x2": ([2, 2], 2, 2),
+              "gqa-one-head-1x4": ([1, 4], 4, 2)}
+STEP_CASES = ("fp32", "bf16", "seq", *HEAD_CASES)
 # (f) the other families' train steps: arch, plan rules, config fields
 TRAIN_CASES = {
     "mixtral-expert": ("mixtral-8x7b", {}, {}),
@@ -266,6 +275,7 @@ report["timings"]["elastic"] = time.perf_counter() - t1
 
 # (f), (g), (h): the other families
 from torch.distributed.tensor.debug import CommDebugMode
+from repro_torch.hw.cost import CostCounter
 from repro_torch.models import zoo
 from repro_torch.serving import cache_shardings
 from repro_torch.train import make_prefill_step, make_serve_step
@@ -291,6 +301,13 @@ def family_inputs(arch):
 def counts(cm):
     return {str(op): int(n) for op, n in cm.get_comm_counts().items()}
 
+def kinds(cc):
+    """The dry-run counter's collectives by kind."""
+    out = {}
+    for op in cc.collectives:
+        out[op.kind] = out.get(op.kind, 0) + 1
+    return out
+
 def cache_plan(plan, kv, shape):
     """The plan that places a serving case's cache, and its kv degree."""
     if not kv:
@@ -313,6 +330,53 @@ report["attention_groups"] = {
     "err": float((got.full_tensor() - want).abs().max()),
     "placements": str(got.placements)}
 
+# (c') one head a rank
+t_heads = time.perf_counter()
+layers.constrain_batch = spy
+for name, (shape, nh, nkv) in cases["heads"].items():
+    t1 = time.perf_counter()
+    hparams, hbatch = family_inputs(f"heads-{nh}-{nkv}")
+    if shape[0] * shape[1] < dist.get_world_size():
+        # (1, 2) on 4 ranks: two meshes of 2, each rank in one
+        hmesh = make_mesh((2, *shape), ("replica", "data", "model"),
+                          device_type="cpu")["data", "model"]
+    else:
+        hmesh = make_mesh(tuple(shape), ("data", "model"), device_type="cpu")
+    cfg = dataclasses.replace(smoke, n_heads=nh, n_kv_heads=nkv,
+                              batch_axes=("data",))
+    ucfg = dataclasses.replace(cfg, batch_axes=())
+    hstate = {"params": hparams,
+              "opt": init_opt_state(tcfg.optimizer, hparams)}
+    new_u, m_u = make_train_step(ucfg, tcfg)(hstate, hbatch)
+    st = distribute_tree(hstate, named_sharding_tree(
+        default_plan(), hmesh, state_specs(cfg, tcfg)))
+    pinned.clear()
+    new_s, m_s = make_train_step(cfg, tcfg, batch_axes=("data",))(st, hbatch)
+    paths = tree_leaves_paths(hparams)
+    kept = all(str(tree_get(t, p).placements)
+               == str(tree_get(st["params"], p).placements)
+               for p in paths for t in (new_s["params"], new_s["opt"]["mu"],
+                                        new_s["opt"]["nu"]))
+    full_s = full(new_s["params"])
+    if rank == 0:
+        np.savez(os.path.join(out, f"step_{name}.npz"),
+                 **{f"sharded/{p}": tree_get(full_s, p).float().numpy()
+                    for p in paths},
+                 **{f"unsharded/{p}": tree_get(new_u["params"], p).float()
+                    .numpy() for p in paths})
+    report["step"][name] = {
+        "loss": float(m_s["loss"]), "loss_unsharded": float(m_u["loss"]),
+        "grad_norm": float(m_s["grad_norm"]),
+        "grad_norm_unsharded": float(m_u["grad_norm"]),
+        "metrics_plain": not any(isinstance(v, DTensor)
+                                 for v in m_s.values()),
+        "placements_kept": kept, "pinned": sorted(set(pinned)),
+        "heads_a_rank": tree_get(st["params"], "layers/wq").to_local()
+        .shape[-1] // cfg.hd,
+        "seconds": time.perf_counter() - t1}
+layers.constrain_batch = _constrain
+report["timings"]["one_head"] = time.perf_counter() - t_heads
+
 report["family_step"] = {}
 t_fam = time.perf_counter()
 for name, (arch, rules, kw) in cases["train"].items():
@@ -327,7 +391,7 @@ for name, (arch, rules, kw) in cases["train"].items():
               "opt": init_opt_state(tcfg.optimizer, fparams)}
     st = distribute_tree(fstate, named_sharding_tree(
         fplan, mesh, state_specs(cfg, tcfg)))
-    with CommDebugMode() as cm:
+    with CommDebugMode() as cm, CostCounter() as cc:
         new_s, m_s = make_train_step(cfg, tcfg, batch_axes=("data",))(
             st, fbatch)
     paths = [p for p in tree_leaves_paths(fparams)]
@@ -338,6 +402,7 @@ for name, (arch, rules, kw) in cases["train"].items():
     full_s = full(new_s["params"])
     rep = {"loss": float(m_s["loss"]), "grad_norm": float(m_s["grad_norm"]),
            "placements_kept": kept, "collectives": counts(cm),
+           "counted": kinds(cc),
            "placements": {p: str(tree_get(st["params"], p).placements)
                           for p in paths}}
     if rank == 0:
@@ -373,18 +438,20 @@ for name, (arch, shape, kv) in cases["serve"].items():
         cfg, cplan, smesh, zoo.abstract_cache(cfg, b, max_len),
         model_degree=degree)
     lu, cu = make_prefill_step(ucfg, max_len)(fparams, prompt)
-    with CommDebugMode() as cm:
+    with CommDebugMode() as cm, CostCounter() as cc:
         ls, cs = make_prefill_step(cfg, max_len, csh)(sp, prompt)
     coll = {"prefill": counts(cm)}
+    counted = {"prefill": kinds(cc)}
     errs = [float((lu - ls).abs().max())]
     scale = [float(lu.abs().max())]
     step_u, step_s = make_serve_step(ucfg), make_serve_step(cfg)
     tok = torch.argmax(lu, dim=-1)
     for i in range(3):
         lu, cu = step_u(fparams, cu, tok, s + i)
-        with CommDebugMode() as cm:
+        with CommDebugMode() as cm, CostCounter() as cc:
             ls, cs = step_s(sp, cs, tok, s + i)
         coll.setdefault("decode", counts(cm))
+        counted.setdefault("decode", kinds(cc))
         errs.append(float((lu - ls).abs().max()))
         scale.append(float(lu.abs().max()))
         tok = torch.argmax(lu, dim=-1)
@@ -403,6 +470,7 @@ for name, (arch, shape, kv) in cases["serve"].items():
         "coords": gather(list(smesh.get_coordinate())),
         "placements": {p: str(t.placements) for p, t in leaves.items()},
         "len": [cu["len"], cs["len"]], "collectives": coll,
+        "counted": counted,
         "seconds": time.perf_counter() - t1}
 report["timings"]["serve"] = time.perf_counter() - t_fam
 report["timings"]["worker"] = time.perf_counter() - t0
@@ -545,7 +613,17 @@ def run(tmp_path_factory):
         np.savez(out / f"inputs_{arch}.npz", **fb,
                  **{f"params/{p}": a for p, a in flat.items()})
         fam_params[arch], fam_batch[arch] = flat, fb
-    cases = json.dumps({"train": TRAIN_CASES, "serve": SERVE_CASES})
+    # (c') the one-head configs' params, the olmo batch
+    head_cfgs = {}
+    for _, nh, nkv in HEAD_CASES.values():
+        hcfg = dataclasses.replace(cfg, n_heads=nh, n_kv_heads=nkv)
+        hflat = {p: np.asarray(a) for p, a in
+                 _flat(jax_zoo.init(hcfg, jax.random.PRNGKey(0))).items()}
+        np.savez(out / f"inputs_heads-{nh}-{nkv}.npz", **batch,
+                 **{f"params/{p}": a for p, a in hflat.items()})
+        head_cfgs[(nh, nkv)] = (hcfg, hflat)
+    cases = json.dumps({"train": TRAIN_CASES, "serve": SERVE_CASES,
+                        "heads": HEAD_CASES})
 
     env = {**os.environ, "PYTHONPATH": SRC, "MASTER_ADDR": "localhost",
            "MASTER_PORT": str(_free_port()), "WORLD_SIZE": str(RANKS),
@@ -565,10 +643,13 @@ def run(tmp_path_factory):
         stdin=subprocess.DEVNULL)
     try:
         # the reference's single-device steps, while the ranks run
-        import dataclasses
         ref = {"fp32": _jax_step(cfg, jparams, batch),
                "bf16": _jax_step(dataclasses.replace(cfg, dtype="bfloat16"),
                                  jparams, batch)}
+        head_ref = {key: _jax_step(hcfg, _nest(hflat), batch)
+                    for key, (hcfg, hflat) in head_cfgs.items()}
+        for name, (_, nh, nkv) in HEAD_CASES.items():
+            ref[name] = head_ref[(nh, nkv)]
         fam_ref = {arch: _jax_step(jax_get_config(arch, smoke=True),
                                    _nest(fam_params[arch]), fam_batch[arch])
                    for arch in sorted({a for a, _, _ in
@@ -619,7 +700,10 @@ def test_default_plan_slices_match_reference_index_map(run):
 def test_sharded_step_matches_unsharded_and_reference(run, case):
     rep = run["report"]["step"][case]
     ref_params, ref_loss, ref_norm = run["ref"][
-        "bf16" if case == "bf16" else "fp32"]
+        case if case in HEAD_CASES else "bf16" if case == "bf16" else "fp32"]
+    if case in HEAD_CASES:
+        # one q head a rank, as the case's name says
+        assert rep["heads_a_rank"] == 1, rep
     assert rep["metrics_plain"]
     assert rep["placements_kept"], "params or moments lost their placement"
     # the residual stream pinned to the batch over "data", and with
@@ -734,9 +818,23 @@ def test_attention_on_unevenly_straddled_kv_groups(run):
     assert rep["err"] <= 1e-6, rep
 
 
+def _by_kind(comm_counts: dict) -> dict:
+    """``CommDebugMode``'s counts (by functional collective op) by the
+    reference's kinds."""
+    names = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+             "all_reduce": "all-reduce", "all_to_all": "all-to-all"}
+    out = {}
+    for op, n in comm_counts.items():
+        kind = next(k for name, k in names.items() if name in op)
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
 def test_collectives_are_recorded_per_family(run):
     """A record, not a bound: each family's collectives a step by kind
-    (``CommDebugMode``), for ``PERF.md``."""
+    (``CommDebugMode``), for ``PERF.md``; the dry-run's counter
+    (``hw.cost.CostCounter``, on in the same steps) counts the same
+    collectives, kind by kind."""
     rep = run["report"]
     for group in (rep["family_step"].values(), rep["serve"].values()):
         for case in group:
@@ -745,6 +843,12 @@ def test_collectives_are_recorded_per_family(run):
                     [kv for d in case["collectives"].values()
                      for kv in d.items()])
             assert all(isinstance(n, int) and n >= 0 for _, n in flat)
+    for case in rep["family_step"].values():
+        assert case["counted"] == _by_kind(case["collectives"]), case
+    for case in rep["serve"].values():
+        for phase in ("prefill", "decode"):
+            assert case["counted"][phase] == \
+                _by_kind(case["collectives"][phase]), (phase, case)
     with open(run["out"] / "collectives.json", "w") as f:
         json.dump({"train": {k: v["collectives"] for k, v in
                              rep["family_step"].items()},
