@@ -241,9 +241,13 @@ Phases, one JSON line each:
              ``dryrun_mesh_cell`` line a cell (roofline terms, dominant
              term, one rank's peak and whether it fits the card,
              collectives by kind, the step's ici and dci link bytes and
-             their time, the kv strategy, seconds) and a summary whose
-             ``ok`` needs every cell counted or skipped with the
-             reference's reason and none in error.
+             their time, the kv strategy, one rank's flops, 6·N·T over
+             one rank's flops times the ranks, the GEMMs run replicated,
+             seconds) and a summary whose ``ok`` needs every cell
+             counted or skipped with the reference's reason and none in
+             error, no GEMM run replicated in the dense family's train
+             and prefill cells on 16x16, and each dense train cell's
+             flops and peak within 1 % of torch 2.13's count on a CPU.
 Each slice zeroes every kernel's launch counter just before it serves and
 reads them just after; then runs its 8 prefill calls once more (the same
 waves, one new token each, so no decode) under ``torch.profiler`` and
@@ -2209,6 +2213,19 @@ def dryrun_matrix(spec) -> dict:
 # child's time limit
 DRYRUN_MULTI_SHAPES = ("decode_32k", "long_500k")
 DRYRUN_MESH_TIMEOUT_S = 600
+# the dense family's train cells on 16x16 as torch 2.13 counts them on a
+# CPU (``python -m repro_torch.launch.dryrun --mesh single --extrapolate
+# --device cpu``): one rank's flops and peak bytes.  Every GEMM of the step
+# now runs with the plan's placements (``layers.tp_matmul``, the
+# vocab-parallel loss), not DTensor's choice, so the card's torch must
+# count the same cells within DRYRUN_MESH_MATCH of both
+DRYRUN_MESH_CPU_DENSE_TRAIN = {
+    "olmo-1b": (44321130676224.0, 4867063832),
+    "granite-3-8b": (292911673507840.0, 8666316824),
+    "codeqwen1.5-7b": (273601668317184.0, 5760688160),
+    "llama3-405b": (1.2866486632710144e+16, 29472653332),
+}
+DRYRUN_MESH_MATCH = 0.01
 
 
 def dryrun_mesh_cell(rec: dict, wall: float) -> dict:
@@ -2239,7 +2256,10 @@ def dryrun_mesh_cell(rec: dict, wall: float) -> dict:
             "ici_link_bytes_step": c["ici_link_bytes_step"],
             "dci_link_bytes_step": c["dci_link_bytes_step"],
             "kv_strategy": rec.get("kv_strategy"),
-            "useful_flops_ratio": rec["useful_flops_ratio"]}
+            "flops_per_device": rec["flops_per_device"],
+            # 6·N·T (2·N·T serving) over (one rank's flops x ranks)
+            "useful_flops_ratio": rec["useful_flops_ratio"],
+            "replicated_gemms": rec["replicated_gemms"]}
 
 
 def dryrun_mesh_child() -> dict:
@@ -2250,8 +2270,11 @@ def dryrun_mesh_child() -> dict:
     card's spec, then on 2x16x16 (512 ranks) every arch's cells of
     ``DRYRUN_MULTI_SHAPES``; a line a cell as it is counted.  Returns the
     summary: cells counted, skipped with the reference's reason, in
-    error, fitting the card, seconds a mesh."""
-    from repro_torch.configs import ARCH_IDS, SHAPES
+    error, fitting the card, seconds a mesh; on 16x16 also the dense
+    family's GEMMs run replicated (train and prefill cells: none may be)
+    and its train cells' flops and peak against the CPU's count
+    (``DRYRUN_MESH_CPU_DENSE_TRAIN``)."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
     from repro_torch.hw import H100Spec
     from repro_torch.launch import dryrun
 
@@ -2287,10 +2310,27 @@ def dryrun_mesh_child() -> dict:
                                 for r in counted)
                          for k in ("compute", "memory", "collective")},
             "seconds": time.perf_counter() - t0}
+        if mesh_name == "single":
+            dense = [r for r in counted
+                     if get_config(r["arch"]).family == "dense"
+                     and r["kind"] in ("train", "prefill")]
+            summary["dense_replicated_gemms"] = {
+                f"{r['arch']} {r['shape']}": r["replicated_gemms"]
+                for r in dense}
+            cpu = DRYRUN_MESH_CPU_DENSE_TRAIN
+            summary["dense_train_vs_cpu"] = {r["arch"]: {
+                "flops_ratio": r["flops_per_device"] / cpu[r["arch"]][0],
+                "peak_ratio": r["hbm_bytes_per_device_est"]
+                / cpu[r["arch"]][1]} for r in dense if r["kind"] == "train"}
+    vs_cpu = summary["dense_train_vs_cpu"]
     summary["ok"] = all(m["cells"] == m["counted"] + m["skipped"]
                         and not m["errors"]
                         for m in summary["meshes"].values()) and \
-        summary["meshes"]["single"]["cells"] == len(ARCH_IDS) * len(SHAPES)
+        summary["meshes"]["single"]["cells"] == len(ARCH_IDS) * len(SHAPES) \
+        and not any(summary["dense_replicated_gemms"].values()) \
+        and sorted(vs_cpu) == sorted(DRYRUN_MESH_CPU_DENSE_TRAIN) \
+        and all(abs(v - 1.0) <= DRYRUN_MESH_MATCH
+                for row in vs_cpu.values() for v in row.values())
     return summary
 
 

@@ -122,7 +122,9 @@ class CostCounter(TorchDispatchMode):
     -> dispatches counted; ``replicated``: each GEMM of DTensors whose
     local share is more than its 1/n of the global GEMM (n the mesh's
     size), as (op, global shapes, local flops, global flops / n): work a
-    rank repeats that other ranks also run."""
+    rank repeats that other ranks also run.  GEMMs that DTensor runs
+    are named here at dispatch; those the layers run on local tensors
+    with explicit placements name themselves (``note_gemm_share``)."""
 
     def __init__(self, *live_trees, pod_size: int | None = None):
         super().__init__()
@@ -292,6 +294,17 @@ def current() -> CostCounter | None:
         if isinstance(mode, CostCounter):
             return mode
     return None
+
+
+def note_gemm_share(op: str, shapes: tuple, local_flops: float,
+                    share: float) -> None:
+    """A GEMM of DTensors run on local tensors (``layers.tp_matmul``, the
+    MoE block's expert products): under a counter, name it in
+    ``replicated`` when the rank's ``local_flops`` exceed its ``share`` of
+    the global GEMM ``op`` of ``shapes``."""
+    counter = current()
+    if counter is not None and local_flops > share:
+        counter.replicated.append((op, shapes, local_flops, share))
 
 
 def counts_meta(t: torch.Tensor) -> bool:

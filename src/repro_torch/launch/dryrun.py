@@ -267,6 +267,7 @@ def _counts(counter: CostCounter, arg_bytes: int) -> dict:
             "kernels": {k: dict(v) for k, v in counter.kernels.items()},
             "bytes_per_device": float(counter.bytes),
             "peak_bytes": int(counter.peak), "argument_bytes": arg_bytes,
+            "replicated_gemms": len(counter.replicated),
             "collectives": {
                 "full_tensor_bytes": stats.raw_operand_bytes,
                 "ici_link_bytes": stats.ici_link_bytes,
@@ -488,7 +489,8 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, mesh=None, *,
         c1, deeper, seconds = extrapolated_cost(cfg, shape, tcfg, mesh, plan,
                                                 spec)
         counts = {"matmul_flops_by_dtype": None, "kernels": None,
-                  "collectives": deeper["collectives"], **c1}
+                  "collectives": deeper["collectives"],
+                  "replicated_gemms": deeper["replicated_gemms"], **c1}
         for key in ("ici_link_bytes", "dci_link_bytes"):
             counts.pop(key)
         rec = _record(cfg, shape, m, counts, seconds, spec, mesh,

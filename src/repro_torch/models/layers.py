@@ -30,7 +30,13 @@ constraint before the scan makes GSPMD do.  Decode attention reads a
 cache placed by ``serving.kvcache.cache_shardings``: rank by rank where
 its heads or rows are sharded, and where its sequence is, as
 flash-decoding (a partial softmax on each rank, combined by
-all-reduces).
+all-reduces).  The projections run on local tensors too, with the
+placements the reference's plan implies rather than DTensor's choice
+(``tp_matmul``: column-parallel q, k, v, gate, up and unembedding,
+row-parallel o and down, the FSDP split of each weight gathered), and so
+do the MoE block's expert products (``_moe_experts_sharded``) and the
+cross-entropy of vocab-split logits (``vocab_parallel_nll``): no rank
+repeats a GEMM that the plan splits, and none holds the whole logits.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.hw.cost import counts_meta
+from repro_torch.hw.cost import counts_meta, note_gemm_share
 from repro_torch.kernels._grad import KernelFn, needs_grad
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru import rglru, rglru_plain
@@ -237,6 +243,175 @@ def _wrap_local(o: torch.Tensor, mesh, placements: tuple, shape: tuple
         shape=torch.Size(shape), stride=tuple(stride))
 
 
+def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` as a DTensor on ``mesh``: a plain tensor counts as
+    replicated."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor, kind: str, *,
+              reduce: bool = True, scatter: bool = False) -> torch.Tensor:
+    """``x @ w`` for a projection of (..., K) activations by a (K, N)
+    weight, placed as the reference's plan places it, whatever DTensor's
+    own propagation would pick.
+
+    ``kind`` names the weight dim that its tensor-parallel split cuts:
+    "column" (wq, wk, wv, w_gate, w_up, the unembedding: N) or "row" (wo,
+    w_down: K).  A split of the other weight dim is FSDP's and is
+    gathered.  Each mesh dim then plays one part:
+
+    * it splits a row dim of ``x`` (the batch, or a sequence): the
+      weight is gathered there and each rank takes its rows;
+    * it splits the weight's tensor-parallel dim: in a column product
+      ``x`` is read whole (a ``Partial`` reduced first) and each rank
+      makes its slice of N; in a row product ``x`` comes split along K
+      and each rank's product is a partial sum over that mesh dim, which
+      is all-reduced, or with ``scatter`` reduce-scattered onto N (each
+      rank its slice, for a consumer split so), or with ``reduce=False``
+      left ``Partial`` for the caller (the reduce-scatter of
+      ``seq_boundary`` under sequence parallelism);
+    * it splits neither, where the plan leaves the weight whole over
+      it (rwkv6's LoRAs and ``cm_wr``, whose logical axes map to no
+      model axis): ``x`` and the weight are whole there and every rank
+      repeats the product, as GSPMD would
+      (``hw.cost.CostCounter.replicated`` names it).
+
+    The product runs on each rank's local tensors (``to_local``, then
+    ``DTensor.from_local``) with the gradient placements the split
+    implies, so DTensor's propagation has no say in where the weights
+    live.  Plain tensors multiply as they are."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    if kind not in ("column", "row"):
+        raise ValueError(f"tp_matmul: kind {kind!r} is not 'column' or "
+                         "'row'")
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    x, w = _as_dtensor(x, mesh), _as_dtensor(w, mesh)
+    last = x.ndim - 1
+    tp = Shard(1 if kind == "column" else 0)
+    rep = Replicate()
+    xp, wp, out, xg, wg = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if isinstance(a, Shard) and a.dim != last:           # rows
+            parts = (a, rep, a, a, Partial())
+        elif b == tp and kind == "column":
+            parts = (rep, b, Shard(last), Partial(), b)
+        elif b == tp:                                         # row
+            parts = (Shard(last), b, Partial(), Shard(last), b)
+        else:                                                 # whole
+            parts = (rep,) * 5
+        for lst, p in zip((xp, wp, out, xg, wg), parts):
+            lst.append(p)
+    xl = to_local(x, tuple(xp), tuple(xg))
+    wl = to_local(w, tuple(wp), tuple(wg))
+    k, n = w.shape
+    rows = x.numel() // k
+    note_gemm_share("aten.mm", ((rows, k), (k, n)),
+                    2 * xl.numel() * wl.shape[-1],
+                    2 * rows * k * n / mesh.size())
+    y = _wrap_local(xl @ wl, mesh, tuple(out), (*x.shape[:-1], n))
+    if kind == "column" or not reduce:
+        return y
+    return y.redistribute(mesh, tuple(
+        p if not p.is_partial() else Shard(last) if scatter else rep
+        for p in y.placements))
+
+
+def vocab_split(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` (..., V) is a DTensor with its vocab split."""
+    if not is_dtensor(logits):
+        return False
+    from torch.distributed.tensor import Shard
+    return Shard(logits.ndim - 1) in logits.placements
+
+
+def _all_reduce(t: torch.Tensor, op: str, groups: list) -> torch.Tensor:
+    """``t`` all-reduced by ``op`` over each (mesh, mesh dim) of
+    ``groups`` in turn."""
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+    return t
+
+
+class _LogSumExpOverRanks(torch.autograd.Function):
+    """``torch.logsumexp(lf, -1)`` of a row split over ``groups``, from the
+    rank's slice ``lf``: the local max, all-reduced (MAX) as a constant
+    shift, the local sum of exponentials, all-reduced (SUM), its log plus
+    the shift.  The backward is torch's own, ``g * exp(lf - lse)``, on the
+    rank's slice: one rank with the whole row gives torch's bits."""
+
+    @staticmethod
+    def forward(ctx, lf, groups):
+        m = _all_reduce(torch.amax(lf, dim=-1, keepdim=True), "max", groups)
+        m = m.masked_fill(m.abs() == math.inf, 0.0)
+        se = _all_reduce(torch.exp(lf - m).sum(dim=-1), "sum", groups)
+        lse = torch.log(se) + m.squeeze(-1)
+        ctx.save_for_backward(lf, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(lf - lse[..., None]), None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (SUM) over ``groups`` of partial sums that every rank
+    then uses alike: the cotangent of each rank's part is the cotangent
+    of the sum, unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _all_reduce(x, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def vocab_parallel_nll(lf: torch.Tensor, targets: torch.Tensor
+                       ) -> torch.Tensor:
+    """Next-token NLL (B,S) of fp32 logits ``lf`` (B,S,V), a DTensor with
+    its vocab split (``vocab_split``), against int ``targets`` (B,S): the
+    reference's ``logsumexp`` minus the one-hot contraction, computed on
+    each rank's vocab slice so that no (B,S,V) tensor is whole on a rank.
+    The log-sum-exp takes its max and its sum of exponentials over the
+    ranks (``_LogSumExpOverRanks``); the true-class logit is the
+    contraction with the rank's slice of the one-hot (targets offset by
+    the slice's start, a target outside it matching nothing), summed over
+    the ranks.  Rows keep the logits' batch (and sequence) split; the
+    vocab must split evenly."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = lf.device_mesh
+    vdim = lf.ndim - 1
+    pl = tuple(Replicate() if p.is_partial() else p for p in lf.placements)
+    rows = tuple(Replicate() if p == Shard(vdim) else p for p in pl)
+    pieces = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                       if p == Shard(vdim))
+    if lf.shape[-1] % pieces:
+        raise ValueError(f"vocab_parallel_nll: a vocab of {lf.shape[-1]} "
+                         f"does not split evenly in {pieces}")
+    groups = [(mesh, i) for i, p in enumerate(pl)
+              if p == Shard(vdim) and mesh.size(i) > 1]
+    local = to_local(lf, pl)
+    v = local.shape[-1]
+    t = _as_dtensor(targets, mesh).redistribute(mesh, rows).to_local()
+    t = t.long() - _split_index(mesh, pl, vdim) * v
+    hit = (t >= 0) & (t < v)
+    onehot = F.one_hot(torch.where(hit, t, 0), v).to(local.dtype) \
+        * hit[..., None]
+    true_logit = _SumOverRanks.apply(
+        torch.einsum("bsv,bsv->bs", local, onehot), groups)
+    nll = _LogSumExpOverRanks.apply(local, groups) - true_logit
+    return _wrap_local(nll, mesh, rows, tuple(lf.shape[:-1]))
+
+
 class _ReducedGrad(torch.autograd.Function):
     """Identity whose backward sums a partial cotangent (Partial ->
     Replicate on those mesh dims) before it goes on."""
@@ -287,30 +462,10 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], n, hd)
 
 
-class _WholeHeadsGrad(torch.autograd.Function):
-    """Identity whose backward gathers a cotangent split over more pieces
-    than its ``n`` heads divide (``_whole_heads``)."""
-
-    @staticmethod
-    def forward(ctx, x, n):
-        ctx.n = n
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _whole_heads(g, ctx.n), None
-
-
 def merge_heads(o: torch.Tensor) -> torch.Tensor:
-    """(..., n, hd) -> (..., n*hd), ``split_heads``' inverse.  On
-    DTensors the output projection may take the merged dim split over
-    the model axis (a local slice where the heads were whole), and the
-    cotangent then comes back split so; where the pieces do not divide
-    the ``n`` heads (whisper's 12 on 16) it is gathered before the
-    reshape's backward, which could not unflatten it."""
+    """(..., n, hd) -> (..., n*hd), ``split_heads``' inverse."""
     n, hd = o.shape[-2:]
-    y = o.reshape(*o.shape[:-2], n * hd)
-    return _WholeHeadsGrad.apply(y, n) if is_dtensor(y) else y
+    return o.reshape(*o.shape[:-2], n * hd)
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -550,7 +705,10 @@ def _attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and v take the same where their kv heads divide too; where they do
     not (fewer kv heads than ranks, as MQA), k and v are read whole and
     each rank takes the kv heads its q heads use.  Attention mixes
-    neither rows nor heads, so nothing else is exchanged."""
+    neither rows nor heads, so nothing else is exchanged.  Where the q
+    heads do not divide a mesh dim either (whisper's 12 on 16), every
+    rank of it repeats the rank's attention (named in
+    ``hw.cost.CostCounter.replicated``)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
     h, kh = q.shape[2], k.shape[2]
@@ -586,6 +744,9 @@ def _attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             first, last = h0 // rep, (h0 + hl - 1) // rep
             kl, vl = kl[:, :, first:last + 1], vl[:, :, first:last + 1]
+    note_gemm_share("attention", (tuple(q.shape), tuple(k.shape)),
+                    4 * ql.numel() * k.shape[1],
+                    4 * q.numel() * k.shape[1] / mesh.size())
     o = attention(ql, kl, vl, **kw)
     return _wrap_local(o, mesh, qp, (*q.shape[:3], v.shape[3]))
 
@@ -720,28 +881,38 @@ def _decode_sharded(q: torch.Tensor, k_cache: torch.Tensor,
 # MLPs
 # ---------------------------------------------------------------------------
 
-def mlp_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_swiglu(p: dict, x: torch.Tensor, *, reduce: bool = True
+               ) -> torch.Tensor:
+    """SwiGLU MLP: gate and up column-parallel, down row-parallel
+    (``tp_matmul``; ``reduce=False`` leaves a sharded output's partial
+    sum to the caller)."""
     dt = x.dtype
-    gate = x @ p["w_gate"].to(dt)
-    up = x @ p["w_up"].to(dt)
+    gate = tp_matmul(x, p["w_gate"].to(dt), "column")
+    up = tp_matmul(x, p["w_up"].to(dt), "column")
     act = F.silu(gate.float()).to(dt) * up
-    return act @ p["w_down"].to(dt)
+    return tp_matmul(act, p["w_down"].to(dt), "row", reduce=reduce)
 
 
-def mlp_gelu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_gelu(p: dict, x: torch.Tensor, *, reduce: bool = True
+             ) -> torch.Tensor:
+    """GELU MLP, placed as ``mlp_swiglu``; with a down bias the partial sum
+    is reduced before the bias is added."""
     dt = x.dtype
-    h = x @ p["w_up"].to(dt)
+    h = tp_matmul(x, p["w_up"].to(dt), "column")
     if "b_up" in p:
         h = h + p["b_up"].to(dt)
     h = F.gelu(h.float(), approximate="tanh").to(dt)
-    out = h @ p["w_down"].to(dt)
+    out = tp_matmul(h, p["w_down"].to(dt), "row",
+                    reduce=reduce or "b_down" in p)
     if "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
 
 
-def apply_mlp(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return mlp_swiglu(p, x) if kind == "swiglu" else mlp_gelu(p, x)
+def apply_mlp(kind: str, p: dict, x: torch.Tensor, *, reduce: bool = True
+              ) -> torch.Tensor:
+    mlp = mlp_swiglu if kind == "swiglu" else mlp_gelu
+    return mlp(p, x, reduce=reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -790,11 +961,12 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     On DTensors the routing (``_moe_routing``: the sort, one-hots and
     position ``cumsum`` of a group) runs on each rank's own rows
-    (``on_ranks``), and the expert products run on DTensors: experts
-    sharded on dim 0 (expert parallelism; their outputs are gathered
-    before the combine) or replicated there with the FFN split inside
-    each (the plan's fallback).  Aux is the mean over the global batch,
-    as the reference's sharded step computes it."""
+    (``on_ranks``), and the expert products on each rank's local tensors
+    (``_moe_experts_sharded``): its rows, and its experts (expert
+    parallelism) or its slice of each expert's FFN (the plan's fallback,
+    ``rules["expert"] = ()``), the output a partial sum over the mesh dims
+    that split experts or FFN, all-reduced.  Aux is the mean over the
+    global batch, as the reference's sharded step computes it."""
     b, s, d = x.shape
     dt = x.dtype
     if s > MOE_GROUP:
@@ -808,25 +980,86 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     route = functools.partial(
         _moe_routing, n_experts=n_experts, top_k=top_k,
         capacity=moe_capacity(s, n_experts, top_k, capacity_factor))
-    if is_dtensor(x):
-        combine, dispatch, aux_rows = on_ranks(
-            route, (x, p["router"]), ("bsd", "de"), ("bsec", "bsec", "b"),
-            keep="b")
-    else:
+    if not is_dtensor(x):
         combine, dispatch, aux_rows = route(x, p["router"])
+        aux = n_experts * torch.mean(aux_rows)
+        return _moe_experts(p["w_gate"], p["w_up"], p["w_down"], x,
+                            dispatch, combine), aux
+    combine, dispatch, aux_rows = on_ranks(
+        route, (x, p["router"]), ("bsd", "de"), ("bsec", "bsec", "b"),
+        keep="b")
     aux = n_experts * torch.mean(aux_rows)
+    return reduce_partial(_moe_experts_sharded(p, x, dispatch, combine)), aux
 
+
+def _moe_experts(w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, x: torch.Tensor,
+                 dispatch: torch.Tensor, combine: torch.Tensor
+                 ) -> torch.Tensor:
+    """The experts' SwiGLU on their capacity buffers and the combine back
+    to the tokens: (B,S,D) out of x (B,S,D), dispatch/combine (B,S,E,C)
+    and stacked weights (E,D,F)/(E,F,D)."""
+    dt = x.dtype
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), x)
-    gate = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_gate"].to(dt))
-    up = torch.einsum("ebcd,edf->ebcf", expert_in, p["w_up"].to(dt))
+    gate = torch.einsum("ebcd,edf->ebcf", expert_in, w_gate.to(dt))
+    up = torch.einsum("ebcd,edf->ebcf", expert_in, w_up.to(dt))
     act = F.silu(gate.float()).to(dt) * up
-    expert_out = torch.einsum("ebcf,efd->ebcd", act, p["w_down"].to(dt))
-    # the combine contracts (c, e), e the minor dim: DTensor (torch 2.11)
-    # flattens no pair whose minor dim is split, so expert-split outputs
-    # are gathered first; the contraction order stays the plain path's
-    out = torch.einsum("bsec,ebcd->bsd", combine.to(dt),
-                       gather_dim(expert_out, 0))
-    return out, aux
+    expert_out = torch.einsum("ebcf,efd->ebcd", act, w_down.to(dt))
+    return torch.einsum("bsec,ebcd->bsd", combine.to(dt), expert_out)
+
+
+def _moe_experts_sharded(p: dict, x: torch.Tensor, dispatch: torch.Tensor,
+                         combine: torch.Tensor) -> torch.Tensor:
+    """``_moe_experts`` of DTensors on each rank's local tensors.  Each mesh
+    dim plays one part: it splits x's rows (the weights are gathered
+    there, FSDP), or the experts (x read whole, the rank's slice of the
+    dispatch and combine taken on their E dim), or each expert's FFN
+    (x, dispatch and combine whole, gate and up split on F, down on its F
+    rows), or nothing (every rank repeats the products, named in
+    ``hw.cost.CostCounter.replicated``).  The output is the rank's rows,
+    a ``Partial`` over the expert and FFN dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    ws = [_as_dtensor(p[k], mesh) for k in ("w_gate", "w_up", "w_down")]
+    rep = Replicate()
+    # per tensor (x, dispatch, combine, gate/up, down, out): placement,
+    # and gradient placement
+    pl = [[] for _ in range(6)]
+    gr = [[] for _ in range(6)]
+    for a, b in zip(x.placements, ws[0].placements):
+        if isinstance(a, Shard) and a.dim == 0:                   # rows
+            parts = ((a, a), (a, a), (a, a), (rep, Partial()),
+                     (rep, Partial()), (a, a))
+        elif b == Shard(0):                                       # experts
+            parts = ((rep, Partial()), (Shard(2),) * 2, (Shard(2),) * 2,
+                     (b, b), (b, b), (Partial(), Partial()))
+        elif b == Shard(2):                                       # FFN
+            parts = ((rep, Partial()), (rep, rep), (rep, Partial()),
+                     (b, b), (Shard(1),) * 2, (Partial(), Partial()))
+        else:                                                     # whole
+            parts = ((rep, rep),) * 6
+        for i, (q, g) in enumerate(parts):
+            pl[i].append(q)
+            gr[i].append(g)
+    pl, gr = [tuple(t) for t in pl], [tuple(t) for t in gr]
+    xl = to_local(x, pl[0], gr[0])
+    dl = dispatch.redistribute(mesh, pl[1]).to_local()
+    cl = to_local(combine, pl[2], gr[2])
+    wl = [to_local(w, pl[3 if i < 2 else 4], gr[3 if i < 2 else 4])
+          for i, w in enumerate(ws)]
+    d, f = ws[0].shape[1:]
+    sizes = [dict(zip("bsecdf", (*t.shape, d, ff)))
+             for t, ff in ((dispatch, f), (dl, wl[0].shape[2]))]
+    for eq in ("bsec,bsd->ebcd", "ebcd,edf->ebcf", "ebcd,edf->ebcf",
+               "ebcf,efd->ebcd", "bsec,ebcd->bsd"):
+        whole, mine = (2 * math.prod(n[c] for c in set(eq) - set(",->"))
+                       for n in sizes)
+        note_gemm_share(f"einsum {eq}", tuple(
+            tuple(sizes[0][c] for c in term)
+            for term in eq.split("->")[0].split(",")), mine,
+            whole / mesh.size())
+    out = _moe_experts(*wl, xl, dl, cl)
+    return _wrap_local(out, mesh, pl[5], tuple(x.shape))
 
 
 def _moe_routing(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
@@ -896,8 +1129,11 @@ def _rglru_decay(p: dict, x: torch.Tensor, c: float
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The float32 input gate and the float32 decay a of the RG-LRU."""
     dt = x.dtype
-    gate_x = torch.sigmoid((x @ p["w_gx"].to(dt)).float())
-    gate_a = torch.sigmoid((x @ p["w_ga"].to(dt)).float())
+    # (R, R) weights split on their input rows: row products, each
+    # reduce-scattered onto the channel split x has
+    gate_x, gate_a = (torch.sigmoid(tp_matmul(x, p[w].to(dt), "row",
+                                              scatter=True).float())
+                      for w in ("w_gx", "w_ga"))
     log_a = -c * gate_a * F.softplus(p["log_a"].float())
     return gate_x, torch.exp(log_a)
 

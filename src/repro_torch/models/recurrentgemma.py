@@ -152,10 +152,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _geglu(lp: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    g = F.gelu((x @ lp["w_gate"].to(dt)).float(),
+    g = F.gelu(L.tp_matmul(x, lp["w_gate"].to(dt), "column").float(),
                approximate="tanh").to(dt)
-    up = x @ lp["w_up"].to(dt)
-    return (g * up) @ lp["w_down"].to(dt)
+    up = L.tp_matmul(x, lp["w_up"].to(dt), "column")
+    return L.tp_matmul(g * up, lp["w_down"].to(dt), "row")
 
 
 def _rec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -166,11 +166,12 @@ def _rec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
     dt = x.dtype
     h = L.rms_norm(x, lp["norm"])
-    gate = F.gelu((h @ lp["wy"].to(dt)).float(), approximate="tanh").to(dt)
-    u = h @ lp["wx"].to(dt)
+    gate = F.gelu(L.tp_matmul(h, lp["wy"].to(dt), "column").float(),
+                  approximate="tanh").to(dt)
+    u = L.tp_matmul(h, lp["wx"].to(dt), "column")
     u, new_tail = _causal_conv(u, lp["conv_w"], lp["conv_b"], conv_tail)
     rec, h_last = L.rglru_block(lp, u, h0, scan=rglru_fn)
-    x = x + (rec * gate) @ lp["wo"].to(dt)
+    x = x + L.tp_matmul(rec * gate, lp["wo"].to(dt), "row")
     h2 = L.rms_norm(x, lp["mlp_norm"])
     x = x + _geglu(lp, h2)
     return x, (h_last, new_tail)
@@ -181,15 +182,15 @@ def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
     dt = x.dtype
     hd = cfg.hd
     h = L.rms_norm(x, lp["norm"])
-    q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
-    k = L.split_heads(h @ lp["wk"].to(dt), cfg.n_kv_heads, hd)
-    v = L.split_heads(h @ lp["wv"].to(dt), cfg.n_kv_heads, hd)
+    q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"), n, hd)
+               for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)))
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
 def _attn_out(cfg: ModelConfig, lp: dict, x: torch.Tensor, o: torch.Tensor
               ) -> torch.Tensor:
-    x = x + L.merge_heads(o) @ lp["wo"].to(x.dtype)
+    x = x + L.tp_matmul(L.merge_heads(o), lp["wo"].to(x.dtype), "row")
     h2 = L.rms_norm(x, lp["mlp_norm"])
     return x + _geglu(lp, h2)
 

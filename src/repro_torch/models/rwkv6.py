@@ -164,20 +164,19 @@ def _time_mix(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     xs = _shift(x, prev0)
     delta = xs - x
     # ddlerp: 5 interpolation amounts from a shared LoRA
-    # the 5 LoRAs' 160 columns whole: 5 pieces split over no mesh dim
-    lora = L.gather_dim(x @ lp["tm_lora_a"].to(dt), -1)
+    lora = L.tp_matmul(x, lp["tm_lora_a"].to(dt), "column")
     lora = torch.tanh(lora.float()).to(dt).reshape(b, s, 5, LORA_R)
     amt = lp["tm_mu"].to(dt)[None, None] + torch.einsum(
         "bskr,krd->bskd", lora, lp["tm_lora_b"].to(dt))
     mixed = x[:, :, None, :] + delta[:, :, None, :] * amt     # (B,S,5,D)
     xw, xk, xv, xr, xg = mixed.unbind(2)
 
-    r = xr @ lp["wr"].to(dt)
-    k = xk @ lp["wk"].to(dt)
-    v = xv @ lp["wv"].to(dt)
-    g = xg @ lp["wg"].to(dt)
-    wl = xw @ lp["w_lora_a"].to(dt)
-    wl = torch.tanh(wl.float()) @ lp["w_lora_b"].float()
+    r, k, v, g = (L.tp_matmul(z, lp[w].to(dt), "column")
+                  for z, w in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
+                               (xg, "wg")))
+    wl = L.tp_matmul(xw, lp["w_lora_a"].to(dt), "column")
+    wl = L.tp_matmul(torch.tanh(wl.float()), lp["w_lora_b"].float(),
+                     "column")
     logw = -torch.exp(torch.clamp(lp["w0"].float()[None, None] + wl,
                                   -10.0, 4.0))
     w = torch.exp(logw)                                       # decay in (0,1)
@@ -192,7 +191,7 @@ def _time_mix(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     og = og * torch.rsqrt(torch.mean(og * og, dim=-1, keepdim=True) + 1e-6)
     out = (og.reshape(b, s, d) * lp["ln_x"].float()).to(dt)
     out = out * F.silu(g.float()).to(dt)
-    return out @ lp["wo"].to(dt), final_state, x[:, -1]
+    return L.tp_matmul(out, lp["wo"].to(dt), "row"), final_state, x[:, -1]
 
 
 def _channel_mix(lp: dict, x: torch.Tensor, prev0: torch.Tensor | None):
@@ -202,10 +201,10 @@ def _channel_mix(lp: dict, x: torch.Tensor, prev0: torch.Tensor | None):
     mu = lp["cm_mu"].to(dt)
     xk = x + delta * mu[0][None, None]
     xr = x + delta * mu[1][None, None]
-    k = xk @ lp["cm_wk"].to(dt)
+    k = L.tp_matmul(xk, lp["cm_wk"].to(dt), "column")
     k = torch.square(F.relu(k.float())).to(dt)
-    r = torch.sigmoid((xr @ lp["cm_wr"].to(dt)).float())
-    out = k @ lp["cm_wv"].to(dt)
+    r = torch.sigmoid(L.tp_matmul(xr, lp["cm_wr"].to(dt), "column").float())
+    out = L.tp_matmul(k, lp["cm_wv"].to(dt), "row")
     return (out.float() * r).to(dt), x[:, -1]
 
 

@@ -110,21 +110,23 @@ def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor
     dt = x.dtype
     unemb = (params["embed"]["table"].to(dt).T if cfg.tie_embeddings
              else params["unembed"].to(dt))
-    logits = x @ unemb
+    logits = L.tp_matmul(x, unemb, "column")        # vocab-split
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
 
 
-def _mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor
+def _mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor, *,
+         reduce: bool = True
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The block's MLP: the MoE block and its aux loss, or the dense MLP
-    and None."""
+    and None (``reduce=False``: a sharded dense output's partial sum left
+    to the caller)."""
     if cfg.moe_experts:
         return L.moe_block(lp, h, n_experts=cfg.moe_experts,
                            top_k=cfg.moe_top_k,
                            capacity_factor=cfg.moe_capacity_factor)
-    return L.apply_mlp(cfg.act, lp, h), None
+    return L.apply_mlp(cfg.act, lp, h, reduce=reduce), None
 
 
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor
@@ -154,13 +156,14 @@ def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     h = _norm(cfg, x, lp["attn_norm"])
     if cfg.seq_axes:
         h = L.constrain_batch(h, cfg.batch_axes, ())   # gather into TP
-    q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
-    k = L.split_heads(h @ lp["wk"].to(dt), cfg.n_kv_heads, hd)
-    v = L.split_heads(h @ lp["wv"].to(dt), cfg.n_kv_heads, hd)
+    q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"), n, hd)
+               for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)))
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
-    o = L.merge_heads(o) @ lp["wo"].to(dt)
+    o = L.tp_matmul(L.merge_heads(o), lp["wo"].to(dt), "row",
+                    reduce=not cfg.seq_axes)
     if cfg.seq_axes:
         o = L.seq_boundary(o, cfg.batch_axes, cfg.seq_axes)  # RS back
     return x + o, k, v
@@ -173,7 +176,7 @@ def mlp_half(cfg: ModelConfig, lp: dict, x: torch.Tensor
     h = _norm(cfg, x, lp["mlp_norm"])
     if cfg.seq_axes:
         h = L.constrain_batch(h, cfg.batch_axes, ())
-    m, aux = _mlp(cfg, lp, h)
+    m, aux = _mlp(cfg, lp, h, reduce=not cfg.seq_axes)
     if cfg.seq_axes:
         m = L.seq_boundary(m, cfg.batch_axes, cfg.seq_axes)
     return x + m, aux
@@ -287,9 +290,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         cfg.rope_theta)
     for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
         h = _norm(cfg, x, lp["attn_norm"])
-        q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
-        k = L.split_heads(h @ lp["wk"].to(dt), cfg.n_kv_heads, hd)
-        v = L.split_heads(h @ lp["wv"].to(dt), cfg.n_kv_heads, hd)
+        q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"),
+                                 n, hd)
+                   for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                                ("wv", cfg.n_kv_heads)))
         q = L.apply_rope(q, cos[None], sin[None])
         k = L.apply_rope(k, cos[None], sin[None])
         L.cache_write(cache["k"], (i, slot), k[:, 0])   # in place
@@ -297,7 +301,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         o = L.decode_attention(
             q, cache["k"][i].transpose(0, 1), cache["v"][i].transpose(0, 1),
             n_valid, window=None)   # ring buffer already bounds the window
-        x = x + o.reshape(b, 1, cfg.n_heads * hd) @ lp["wo"].to(dt)
+        x = x + L.tp_matmul(o.reshape(b, 1, cfg.n_heads * hd),
+                            lp["wo"].to(dt), "row")
         x = x + _mlp(cfg, lp, _norm(cfg, x, lp["mlp_norm"]))[0]
     x = _norm(cfg, x, params["final_norm"])
     logits = unembed(cfg, params, x)[:, 0]

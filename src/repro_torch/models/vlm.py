@@ -127,9 +127,10 @@ def _cross_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     dt = x.dtype
     hd = cfg.hd
     h = L.rms_norm(x, lp["norm"])
-    q = L.split_heads(h @ lp["wq"].to(dt), cfg.n_heads, hd)
+    q = L.split_heads(L.tp_matmul(h, lp["wq"].to(dt), "column"), cfg.n_heads,
+                      hd)
     o = attend(q, img_k, img_v)
-    o = L.merge_heads(o) @ lp["wo"].to(dt)
+    o = L.tp_matmul(L.merge_heads(o), lp["wo"].to(dt), "row")
     x = x + _gate(lp["gate_attn"], dt) * o
     m = L.mlp_swiglu(lp, L.rms_norm(x, lp["mlp_norm"]))
     return x + _gate(lp["gate_mlp"], dt) * m
@@ -139,8 +140,8 @@ def _img_kv(cfg: ModelConfig, lp: dict, img: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The frontend embeddings projected to one cross layer's k/v."""
     dt = img.dtype
-    k = L.split_heads(img @ lp["wk"].to(dt), cfg.n_kv_heads, cfg.hd)
-    v = L.split_heads(img @ lp["wv"].to(dt), cfg.n_kv_heads, cfg.hd)
+    k, v = (L.split_heads(L.tp_matmul(img, lp[w].to(dt), "column"),
+                          cfg.n_kv_heads, cfg.hd) for w in ("wk", "wv"))
     return k, v
 
 
@@ -186,7 +187,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     x, _ = _run(cfg, params, batch["tokens"], img, self_attn or L.attention,
                 cfg.remat)
     x = L.rms_norm(x, params["final_norm"])
-    logits = x @ params["unembed"].to(x.dtype)
+    logits = L.tp_matmul(x, params["unembed"].to(x.dtype), "column")
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -226,7 +227,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     x, kvs = _run(cfg, params, tokens, img, self_attn or L.attention, "none")
     kc, vc, xk, xv = (torch.stack(t) for t in zip(*kvs))
     x = L.rms_norm(x[:, -1], params["final_norm"])
-    logits = x @ params["unembed"].to(dt)
+    logits = L.tp_matmul(x, params["unembed"].to(dt), "column")
     return logits, {"k": L.pad_dim(kc, 2, max_len),
                     "v": L.pad_dim(vc, 2, max_len), "xk": xk, "xv": xv,
                     "len": s}
@@ -252,20 +253,23 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     for i, lp in enumerate(unstack(params["supers"], ns)):
         for j, slp in enumerate(unstack(lp["self"], sps)):
             h = L.rms_norm(x, slp["attn_norm"])
-            q = L.split_heads(h @ slp["wq"].to(dt), cfg.n_heads, hd)
-            k = L.split_heads(h @ slp["wk"].to(dt), cfg.n_kv_heads, hd)
-            v = L.split_heads(h @ slp["wv"].to(dt), cfg.n_kv_heads, hd)
+            q, k, v = (L.split_heads(L.tp_matmul(h, slp[w].to(dt),
+                                                 "column"), n, hd)
+                       for w, n in (("wq", cfg.n_heads),
+                                    ("wk", cfg.n_kv_heads),
+                                    ("wv", cfg.n_kv_heads)))
             q = L.apply_rope(q, cos[None], sin[None])
             k = L.apply_rope(k, cos[None], sin[None])
             L.cache_write(cache["k"], (i, j, n), k[:, 0])   # in place
             L.cache_write(cache["v"], (i, j, n), v[:, 0])
             o = L.decode_attention(q, cache["k"][i, j].transpose(0, 1),
                                    cache["v"][i, j].transpose(0, 1), n + 1)
-            x = x + o.reshape(b, 1, cfg.n_heads * hd) @ slp["wo"].to(dt)
+            x = x + L.tp_matmul(o.reshape(b, 1, cfg.n_heads * hd),
+                                slp["wo"].to(dt), "row")
             x = x + L.mlp_swiglu(slp, L.rms_norm(x, slp["mlp_norm"]))
         x = _cross_block(cfg, lp["cross"], x, cache["xk"][i], cache["xv"][i],
                          attend=cross)
     x = L.rms_norm(x[:, 0], params["final_norm"])
-    logits = x @ params["unembed"].to(dt)
+    logits = L.tp_matmul(x, params["unembed"].to(dt), "column")
     cache["len"] = n + 1
     return logits, cache

@@ -105,11 +105,11 @@ def _norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def _heads(x: torch.Tensor, w: torch.Tensor, n: int, hd: int
            ) -> torch.Tensor:
-    return L.split_heads(x @ w.to(x.dtype), n, hd)
+    return L.split_heads(L.tp_matmul(x, w.to(x.dtype), "column"), n, hd)
 
 
 def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return L.merge_heads(o) @ w.to(o.dtype)
+    return L.tp_matmul(L.merge_heads(o), w.to(o.dtype), "row")
 
 
 def _self(cfg: ModelConfig, lp: dict, h: torch.Tensor,
@@ -176,7 +176,7 @@ def _embed(params: dict, tokens: torch.Tensor, positions: torch.Tensor,
 
 def _unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: x @ embed/tableᵀ over the padded vocab."""
-    return x @ params["embed"]["table"].to(x.dtype).T
+    return L.tp_matmul(x, params["embed"]["table"].to(x.dtype).T, "column")
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,

@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import (recurrentgemma, rwkv6, transformer, vlm,
                                 whisper)
+from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
 
 FAMILY_MODULES = {"dense": transformer, "moe": transformer,
@@ -95,15 +96,22 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01, **kw):
     """Next-token cross-entropy (+ MoE aux).  batch needs "tokens" and
     "targets", optionally "mask".  The true-class logit comes from a
-    one-hot contraction, as in the reference.  ``kw`` goes to ``forward``
-    (e.g. ``self_attn``, to hold the kernel path against the plain one)."""
+    one-hot contraction, as in the reference, whose contraction exists so
+    that vocab-split logits partition as local partial sums and small
+    all-reduces: on such logits (a DTensor split over the vocab) the loss
+    runs so, on each rank's slice (``layers.vocab_parallel_nll``), and no
+    (B,S,V) tensor is whole on a rank.  ``kw`` goes to ``forward`` (e.g.
+    ``self_attn``, to hold the kernel path against the plain one)."""
     logits, aux = forward(cfg, params, batch, **kw)
     targets = batch["targets"]
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    onehot = F.one_hot(targets.long(), lf.shape[-1]).to(lf.dtype)
-    true_logit = torch.einsum("bsv,bsv->bs", lf, onehot)
-    nll = lse - true_logit
+    if L.vocab_split(lf):
+        nll = L.vocab_parallel_nll(lf, targets)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        onehot = F.one_hot(targets.long(), lf.shape[-1]).to(lf.dtype)
+        true_logit = torch.einsum("bsv,bsv->bs", lf, onehot)
+        nll = lse - true_logit
     mask = batch.get("mask")
     if mask is not None:
         nll = nll * mask

@@ -66,6 +66,8 @@ B, S = 2, 64
 REFERENCE_FLOPS = {
     ("olmo-1b", "forward"): 46_137_344,
     ("olmo-1b", "loss gradient"): 138_674_176,
+    ("granite-3-8b", "forward"): 34_603_008,
+    ("granite-3-8b", "loss gradient"): 104_071_168,
     ("mixtral-8x7b", "forward"): 73_531_392,
     ("mixtral-8x7b", "loss gradient"): 212_467_712,
     ("llama-3.2-vision-11b", "forward"): 49_020_928,
@@ -167,8 +169,9 @@ def port_count(arch: str, pass_: str, **kw) -> CostCounter:
 
 
 @pytest.mark.parametrize("pass_", PASSES)
-@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x7b",
-                                  "llama-3.2-vision-11b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-3-8b",
+                                  "mixtral-8x7b", "llama-3.2-vision-11b",
+                                  "whisper-small"])
 def test_matmul_flops_equal_the_reference_dots(arch, pass_):
     counter = port_count(arch, pass_, self_attn=attention_plain)
     want = reference_flops(arch, pass_)

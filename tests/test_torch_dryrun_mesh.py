@@ -14,9 +14,12 @@ meta tensors, torn down after the module:
 * A hand count of one FSDP/TP linear layer's forward and backward on
   (2, 4): each collective's kind, group and bytes.
 * Per-device GEMM flops x 8 on (2, 4) equal the unsharded count for
-  olmo-1b and mixtral-8x7b smoke, train and prefill, once the GEMMs that
-  run replicated are named and their repeats taken off; the unsharded
-  train count is itself the reference's ``dot_general`` flops.
+  olmo-1b and granite-3-8b smoke, train and prefill, with no GEMM run
+  replicated; for mixtral-8x7b once the router's repeats are taken off;
+  the unsharded train count is itself the reference's ``dot_general``
+  flops.
+* The vocab-parallel loss on 4 gloo ranks against the reference's
+  ``loss_fn`` and its gradient, and the widest tensor it holds.
 * The reference's ``test_tiny_dryrun_cell`` as a port test, and a
   (2, 2, 2) pod cell whose gradient reduction crosses the pod boundary.
 * ``plan_for_shape`` and each decode cell's ``kv_strategy`` equal the
@@ -28,8 +31,12 @@ meta tensors, torn down after the module:
 
 import ast
 import dataclasses
+import json
 import os
 import pathlib
+import subprocess
+import sys
+import textwrap
 import types
 
 import jax
@@ -54,11 +61,12 @@ from repro_torch.models import layers, zoo
 from repro_torch.serving import cache_shardings
 
 WORLD = 512
-REF_DRYRUN = pathlib.Path(__file__).resolve().parents[1] / \
-    "src/repro/launch/dryrun.py"
+REPO = pathlib.Path(__file__).resolve().parents[1]
+REF_DRYRUN = REPO / "src/repro/launch/dryrun.py"
 # the reference's dot_general flops of the loss gradient at B=2, S=64,
 # float32 smoke configs (held by tests/test_torch_dryrun.py)
-REFERENCE_GRAD_FLOPS = {"olmo-1b": 138_674_176, "mixtral-8x7b": 212_467_712}
+REFERENCE_GRAD_FLOPS = {"olmo-1b": 138_674_176, "granite-3-8b": 104_071_168,
+                        "mixtral-8x7b": 212_467_712}
 
 
 @pytest.fixture(scope="module")
@@ -273,22 +281,20 @@ def _routing_flops(counter_flops: list):
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill"])
-@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-3-8b", "mixtral-8x7b"])
 def test_per_device_gemm_flops_times_devices_equal_unsharded(
         world, arch, kind, monkeypatch):
-    """B=2, S=64, float32 smoke, one microbatch, no remat.  Each rank's
-    GEMM flops x 8 equal the unsharded count once the repeats of the
-    GEMMs that run replicated are taken off:
-
-    * GEMMs of DTensors whose local share exceeds 1/8 of the global GEMM
-      (``CostCounter.replicated``): olmo-1b's MLP gate and up
-      projections, which DTensor runs on the partial sums of the
-      attention's output with the weights gathered over "model" (it keeps
-      the reduction past the non-parametric norm's linear steps), so each
-      of the 4 model ranks repeats them;
-    * mixtral-8x7b's router, run on each rank's rows inside the MoE
-      routing (``layers._moe_routing``), whole on every "model" rank, and
-      in training its gradient's GEMMs.
+    """B=2, S=64, float32 smoke, one microbatch, no remat.  Every GEMM of
+    a block, the unembedding and the loss runs with the plan's placements
+    (``layers.tp_matmul``, the MoE block's expert products, the
+    vocab-parallel loss), so no rank repeats one: ``CostCounter.replicated``
+    is empty and each rank's GEMM flops x 8 equal the unsharded count
+    exactly.  The one repeat left is mixtral-8x7b's router, which runs on
+    each rank's rows inside the MoE routing (``layers._moe_routing``),
+    whole on every "model" rank as GSPMD runs it, and in training its
+    gradient's GEMMs; its repeats are taken off.  granite-3-8b's 2 kv
+    heads on a model axis of 4 split its k and v projections by columns
+    (half a head a rank), gathered before attention.
 
     A train cell's unsharded count is the reference's ``dot_general``
     flops of the loss gradient (flash's backward recomputes the dense
@@ -311,22 +317,17 @@ def test_per_device_gemm_flops_times_devices_equal_unsharded(
     monkeypatch.setattr(layers, "_moe_routing", spy)
     counter = dryrun.count_step(scfg, shape, mesh, plan=plan, tcfg=tcfg)[0]
     per_device = sum(counter.matmul_flops.values())
-    named = {(op, shapes) for op, shapes, _, _ in counter.replicated}
-    repeats = sum(8 * (local - share)
-                  for _, _, local, share in counter.replicated)
-    if arch == "olmo-1b":
-        # (B S, d) @ (d, ff): the gate and up projections (and their
-        # gradients' GEMMs in training)
-        assert ("aten.mm", ((2 * 64, cfg.d_model), (cfg.d_model, cfg.d_ff))
-                ) in named, named
-        assert not routing
-    else:
+    assert counter.replicated == []
+    repeats = 0.0
+    if arch == "mixtral-8x7b":
         # the router: every rank's rows, each "model" rank the same; in
         # training also its two gradient GEMMs (x's and the weight's),
         # each of the forward's flops
         assert routing and all(f > 0 for f in routing)
         passes = 3 if kind == "train" else 1
-        repeats += 8 * passes * sum(routing) * (1 - 1 / 4)
+        repeats = 8 * passes * sum(routing) * (1 - 1 / 4)
+    else:
+        assert not routing
     assert per_device * 8 - repeats == unsharded
     # DTensor's propagation ran on global shapes and was not counted:
     # the rank's count is less than the unsharded one
@@ -358,6 +359,61 @@ def test_tiny_dryrun_cell(world):
         coll["ici_link_bytes_step"], 0.0)
     assert rec["mesh"] == "2x4" and rec["devices"] == 8
     assert rec["hlo_flops_global"] == 8 * rec["flops_per_device"]
+
+
+# the reference's tiny cell, counted by its ``measure_cell`` in a process
+# with 8 forced host devices; its record's collectives and flops
+REF_TINY_CELL = """
+import dataclasses, json
+from repro.configs import SHAPES, get_config
+from repro.launch.dryrun import measure_cell
+from repro.launch.mesh import make_mesh
+cfg = dataclasses.replace(get_config("olmo-1b", smoke=True), dtype="bfloat16")
+rec = measure_cell(cfg, SHAPES["train_4k"].scaled(seq=128, batch=8),
+                   make_mesh((2, 4), ("data", "model")), mesh_name="single")
+print(json.dumps({"collectives": rec["collectives"],
+                  "flops_per_device": rec["flops_per_device"]}))
+"""
+# the port's count of the cell when DTensor chose each op's placement
+# (PERF.md, the mesh dry-run's findings): link bytes a step and flops a
+# device
+TINY_CELL_BEFORE = (15_684_658, 3.870e8)
+
+
+@pytest.fixture(scope="module")
+def ref_tiny_cell():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    out = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(REF_TINY_CELL)],
+        capture_output=True, text=True, env=env, timeout=300,
+        stdin=subprocess.DEVNULL)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def test_tiny_cell_against_the_reference(world, ref_tiny_cell):
+    """The reference's tiny cell beside the port's count of it: with
+    every GEMM placed as the plan places it, the port moves at most half
+    the link bytes a step it moved when DTensor chose (15,684,658) and
+    does fewer flops a device (3.870e8); each collective kind it counts
+    is one the reference's HLO has, or the reduce-scatter of the FSDP
+    weight gradients (the reference all-reduces its partial sums).  Both
+    records go to ``PERF.md``."""
+    cfg = dataclasses.replace(get_config("olmo-1b", smoke=True),
+                              dtype="bfloat16")
+    rec = dryrun.measure_cell(cfg, SHAPES["train_4k"].scaled(seq=128, batch=8),
+                              _mesh((2, 4), ("data", "model")),
+                              mesh_name="single")
+    mine, ref = rec["collectives"], ref_tiny_cell["collectives"]
+    assert ref["ici_link_bytes_step"] == 2_712_566
+    assert mine["ici_link_bytes_step"] <= TINY_CELL_BEFORE[0] / 2, mine
+    assert rec["flops_per_device"] < TINY_CELL_BEFORE[1], rec
+    assert set(mine["by_kind"]) <= set(ref["by_kind"]) | {"reduce-scatter"}
+    # FSDP's weight gathers: as many as the reference's
+    assert mine["by_kind"]["all-gather"]["count"] == \
+        ref["by_kind"]["all-gather"]["count"]
 
 
 def test_pod_cell_reduces_gradients_across_the_pod_axis(world):
