@@ -355,6 +355,8 @@ TRAIN_LR = 1e-4
 # for this many steps; losses within the reference's sharded-against-single
 # bound (tests/test_multidevice.py); the child's time limit
 MULTI_STEPS, MULTI_LOSS_TOL, MULTI_TIMEOUT_S = 3, 5e-3, 600
+# the multidevice phase's compressed steps: scheme -> topk_ratio
+MULTI_COMPRESSION = {"topk": 0.01, "int8": 0.01}
 # the multidevice phase's other families, each sharded on the same (1, 1)
 # mesh and held against the same run unsharded in the child: the train_moe
 # phase's mixtral-8x7b step for this many steps, and prefill plus this many
@@ -407,8 +409,19 @@ WKV6_SHAPES = [
 ]
 
 
+# every line the run prints, in full, for a runner that keeps only the end
+# of standard output (the parent process writes it; the children's lines
+# reach it through the parent)
+LOG = Path(__file__).resolve().parent / "chip_smoke_out" / "chip_smoke.jsonl"
+_log = None
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _log is not None:
+        _log.write(line + "\n")
+        _log.flush()
 
 
 def nvidia_smi() -> str:
@@ -1787,6 +1800,90 @@ def multidevice_moe(mesh, dev, kernels) -> dict:
             / sum(runs["unsharded"]["step_s"][1:])}
 
 
+def multidevice_compressed(mesh, dev, kernels, scheme: str) -> dict:
+    """Gradient compression on a sharded state: the train phase's
+    olmo-1b step (full width, B=4, S=2048, 2 microbatches, remat) with
+    ``scheme`` (``MULTI_COMPRESSION``) for ``MULTI_STEPS`` steps,
+    unsharded and then sharded by ``default_plan`` on ``mesh`` from the
+    same seed, one state at a time (each carries an fp32 "error" as large
+    as the params).  The losses and every "error" and parameter leaf are
+    held bit for bit (the unsharded leaves are kept on the host
+    meanwhile); the sharded run's flash launches are the uncompressed
+    sharded step's."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.common import default_plan, tree_leaves
+    from repro_torch.optim import CompressionConfig
+    from repro_torch.sharding import distribute_tree, named_sharding_tree
+    from repro_torch.train import init_state, make_train_step, state_specs
+
+    cfg, tcfg = olmo_train_setup()
+    tcfg = dataclasses.replace(tcfg, compression=CompressionConfig(
+        scheme=scheme, topk_ratio=MULTI_COMPRESSION[scheme]))
+    source = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab=cfg.vocab))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in source.batch_at(0).items()}
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        c = dataclasses.replace(cfg, batch_axes=("data",)) \
+            if name == "sharded" else cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(c, tcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        if name == "sharded":
+            state = distribute_tree(state, named_sharding_tree(
+                default_plan(), mesh, state_specs(c, tcfg)))
+            step = make_train_step(c, tcfg, batch_axes=("data",))
+        else:
+            step = make_train_step(c, tcfg)
+        for k in kernels:
+            k.launches = 0
+        losses, times = [], []
+        for _ in range(MULTI_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].detach().clone())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        leaves = {part: [(t.to_local() if name == "sharded" else t).cpu()
+                         for t in tree_leaves(state[part])]
+                  for part in ("error", "params")}
+        runs[name] = {"losses": losses, "leaves": leaves, "step_s": times,
+                      "median_step_s": statistics.median(times[1:]),
+                      "launches": {k.__name__: k.launches for k in kernels},
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "compression_ratio": float(m["compression_ratio"])}
+        if name == "sharded":
+            runs[name]["error_placements"] = sorted(
+                {str(t.placements) for t in tree_leaves(state["error"])})
+        del state, step, m
+    got, want = runs["sharded"].pop("leaves"), runs["unsharded"].pop("leaves")
+    n_leaves = len(want["error"])
+    equal = {part: sum(a.shape == b.shape and bool(torch.equal(a, b))
+                       for a, b in zip(got[part], want[part]))
+             for part in want}
+    del got, want
+    losses = runs["unsharded"].pop("losses")
+    held = held_bit_for_bit(runs["sharded"].pop("losses"), losses)
+    return {"phase": "multidevice_compressed", "arch": cfg.arch_id,
+            "scheme": scheme, "topk_ratio": MULTI_COMPRESSION[scheme],
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "microbatches": tcfg.microbatches,
+            "loss": [float(x) for x in losses],
+            "loss_bit_equal": held["bit_equal"],
+            "error_leaves": n_leaves, "error_leaves_equal": equal["error"],
+            "param_leaves_equal": equal["params"],
+            **{f"{k}_{n}": v for n, r in runs.items() for k, v in r.items()}}
+
+
 def multidevice_serve(mesh, dev, kernels, arch: str) -> dict:
     """A served family: prefill of ``MULTI_SERVE_BATCH`` prompts and
     ``MULTI_DECODE_STEPS`` decode steps (each step's token the unsharded
@@ -2009,6 +2106,8 @@ def multidevice_child(tmp: str) -> dict:
                 "matmul_ms": cuda_ms(lambda: torch.matmul(x, w))}
         del x, w, y, ref
         torch.cuda.empty_cache()
+        compressed = [multidevice_compressed(mesh, dev, kernels, scheme)
+                      for scheme in MULTI_COMPRESSION]
         families = [multidevice_moe(mesh, dev, kernels)]
         families += [multidevice_serve(mesh, dev, kernels, arch)
                      for arch in MULTI_SERVE]
@@ -2025,6 +2124,7 @@ def multidevice_child(tmp: str) -> dict:
                 "checkpoint": {"exact": exact, "bytes": ck_bytes,
                                "save_s": save_s, "restore_s": restore_s},
                 "ring_ag_matmul": ring, "families": families,
+                "compressed": compressed,
                 "dryrun_vs_card": vs_card}
     finally:
         dist.destroy_process_group()
@@ -2114,10 +2214,27 @@ def multidevice(train: dict) -> dict:
     line["expected_launches"] = {"flash_attention": expected, "rglru": 0,
                                  "wkv6": 0}
     families = line.pop("families")
+    compressed_ok = []
     for fam in families:
         fam["phase"] = "multidevice_family"
         fam["ok"] = multidevice_family_ok(fam)
         emit(fam)
+    for rec in line.pop("compressed"):
+        rec.update({
+            "uncompressed_sharded_median_step_s": line["median_step_s"],
+            "uncompressed_sharded_peak_mem_bytes": line["peak_mem_bytes"],
+            "expected_launches": line["expected_launches"]})
+        rec["ok"] = (rec["loss_bit_equal"]
+                     and rec["error_leaves_equal"] == rec["error_leaves"] > 0
+                     and rec["param_leaves_equal"] == rec["error_leaves"]
+                     and rec["launches_sharded"] == rec["expected_launches"]
+                     and rec["launches_unsharded"] == rec["expected_launches"]
+                     and rec["compression_ratio_sharded"]
+                     == rec["compression_ratio_unsharded"]
+                     == (rec["topk_ratio"] if rec["scheme"] == "topk"
+                         else 0.25))
+        emit(rec)
+        compressed_ok.append(rec["ok"])
     vs_card = line.pop("dryrun_vs_card")
     emit(vs_card)
     line["dryrun_vs_card_ok"] = vs_card["ok"]
@@ -2132,6 +2249,8 @@ def multidevice(train: dict) -> dict:
                   and line["launches"] == line["expected_launches"]
                   and len(families) == 1 + len(MULTI_SERVE)
                   and all(f["ok"] for f in families)
+                  and len(compressed_ok) == len(MULTI_COMPRESSION)
+                  and all(compressed_ok)
                   and vs_card["ok"]
                   and wall <= MULTI_TIMEOUT_S)
     emit(line)
@@ -2853,6 +2972,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dryrun-mesh"]:
         emit(dryrun_mesh_child())
         return 0
+    global _log
+    LOG.parent.mkdir(exist_ok=True)
+    _log = open(LOG, "w")
     import numpy as np
 
     from repro_torch.configs import get_config

@@ -212,7 +212,10 @@ def count_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None, *,
     ``state_specs``, serving params by ``zoo.specs``, the decode cache by
     ``cache_shardings``, the batch's rows over the plan's batch axes)
     before the count, and ``cfg`` should carry the plan's
-    ``batch_axes``/``seq_axes`` (``lower_cell`` sets them)."""
+    ``batch_axes``/``seq_axes`` (``lower_cell`` sets them).  A serving
+    step's logits stay as placed (``placed_logits``): the reference's
+    jitted steps leave their output sharding to the compiler, so its HLO
+    gathers no logits."""
     specs = input_specs(cfg, shape)
     strategy = None
     if mesh is not None:
@@ -236,7 +239,7 @@ def count_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None, *,
             params = distribute_tree(params, named_sharding_tree(
                 plan, mesh, zoo.specs(cfg)))
         args = (params, specs)
-        step = make_prefill_step(cfg, max_len)
+        step = make_prefill_step(cfg, max_len, placed_logits=True)
         with CostCounter(*args, pod_size=pod_size) as counter:
             step(params, specs)
     else:
@@ -252,7 +255,7 @@ def count_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None, *,
                 model_degree=mesh_sizes(mesh).get("model", 1))
             cache = place_cache(cache, c_sh)
         args = (params, cache, specs["token"])
-        step = make_serve_step(cfg)
+        step = make_serve_step(cfg, placed_logits=True)
         with CostCounter(*args, pod_size=pod_size) as counter:
             step(params, cache, specs["token"], specs["pos"])
     if mesh is None:

@@ -209,7 +209,11 @@ def to_local(a: torch.Tensor, placements: tuple, grad_placements=None
     """This rank's local tensor of DTensor ``a`` redistributed to
     ``placements``; its gradient goes back as a DTensor of
     ``grad_placements`` (default: ``placements``, a ``Partial`` as a
-    ``Replicate``).
+    ``Replicate``).  Where ``a`` already has ``placements`` no
+    redistribution is recorded: its backward would reduce a partial
+    gradient at once, and a partial one (a column product's input
+    gradient) then stays partial, so that the gradients of q, k and v
+    (of gate and up) are summed before one reduction, as XLA sums them.
 
     The gradient is made contiguous on its way back: DTensor runs each
     op on the local tensors but takes the output's global stride from
@@ -223,8 +227,9 @@ def to_local(a: torch.Tensor, placements: tuple, grad_placements=None
     reshape of ``split_heads``' backward then views a local tensor that
     cannot be viewed.
     """
-    local = a.redistribute(a.device_mesh, tuple(placements)).to_local(
-        grad_placements=grad_placements)
+    if tuple(a.placements) != tuple(placements):
+        a = a.redistribute(a.device_mesh, tuple(placements))
+    local = a.to_local(grad_placements=grad_placements)
     return _ContiguousGrad.apply(local)
 
 
@@ -320,6 +325,28 @@ def tp_matmul(x: torch.Tensor, w: torch.Tensor, kind: str, *,
     return y.redistribute(mesh, tuple(
         p if not p.is_partial() else Shard(last) if scatter else rep
         for p in y.placements))
+
+
+def split_like(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(K, N) weight ``w``, whole where the plan leaves it, with its N
+    split as ``like``'s columns where ``like`` splits them and ``w`` is
+    replicated (a local slice; the gradient is gathered back): a
+    column product by it then makes only the rank's columns, for a
+    consumer split as ``like``'s output (rwkv6's ``w_lora_b`` feeds the
+    decay of the heads that ``wr`` splits, and GSPMD splits it so).  A
+    split that does not divide N, or a plain tensor, leaves it as it
+    is."""
+    if not (is_dtensor(w) and is_dtensor(like)):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    col = Shard(like.ndim - 1)
+    pl = tuple(Shard(1) if q == col and p == Replicate() else p
+               for p, q in zip(w.placements, like.placements))
+    pieces = math.prod(w.device_mesh.size(i) for i, p in enumerate(pl)
+                       if p == Shard(1))
+    if pl == tuple(w.placements) or w.shape[1] % pieces:
+        return w
+    return w.redistribute(w.device_mesh, pl)
 
 
 def vocab_split(logits: torch.Tensor) -> bool:
@@ -453,32 +480,130 @@ def _whole_heads(t: torch.Tensor, n: int) -> torch.Tensor:
     return t
 
 
-def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+def _head_group_mesh(mesh, dim: int, groups: int):
+    """``mesh`` with mesh dim ``dim`` (n ranks) unflattened into
+    ("<name>.heads", "<name>.copies") of (``groups``, n // ``groups``)
+    ranks, rank j of the old dim at (j // (n // groups), j % (n //
+    groups)): a head group a "heads" rank, repeated over its "copies".
+    Built once a (mesh, dim, groups), over the same ranks (every rank
+    builds it at the same call, as a ``DeviceMesh`` needs); the new mesh
+    names its parent in ``head_group_parent``."""
+    cache = mesh.__dict__.setdefault("_head_group_meshes", {})
+    if (dim, groups) not in cache:
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.utils._python_dispatch import _disable_current_modes
+        ranks = mesh.mesh
+        shape = (*ranks.shape[:dim], groups, ranks.shape[dim] // groups,
+                 *ranks.shape[dim + 1:])
+        names = list(mesh.mesh_dim_names)
+        names[dim:dim + 1] = [f"{names[dim]}.heads", f"{names[dim]}.copies"]
+        with _disable_current_modes():       # not a step's work
+            grouped = DeviceMesh(mesh.device_type, ranks.reshape(shape),
+                                 mesh_dim_names=tuple(names))
+        grouped.head_group_parent = (mesh, dim)
+        cache[(dim, groups)] = grouped
+    return cache[(dim, groups)]
+
+
+def _group_heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A DTensor (..., n*hd) whose last dim one mesh dim of m ranks splits
+    where ``n`` heads do not divide m but g = gcd(n, m) > 1 does (whisper's
+    12 heads on 16: 4 groups of 3 heads, each on 4 ranks), as a DTensor
+    on ``_head_group_mesh``: each rank gathers its group's columns from
+    the m // g ranks that share the group (an all-gather over "copies"),
+    so that its heads are whole and split over "heads".  Anything else
+    as it is (a split over several mesh dims, columns that the ranks do
+    not divide, a mesh that does not span the process group)."""
+    if not is_dtensor(t):
+        return t
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, last = t.device_mesh, t.ndim - 1
+    dims = [i for i, p in enumerate(t.placements) if p == Shard(last)]
+    if len(dims) != 1 or any(p.is_partial() for p in t.placements):
+        return t
+    i = dims[0]
+    m = mesh.size(i)
+    g = math.gcd(n, m)
+    if n % m == 0 or g == 1 or t.shape[-1] % m \
+            or mesh.mesh.numel() != dist.get_world_size():
+        return t
+    grouped = _head_group_mesh(mesh, i, g)
+    split = list(t.placements)
+    split[i:i + 1] = [Shard(last), Shard(last)]
+    local = _wrap_local(to_local(t, tuple(t.placements)), grouped,
+                        tuple(split), tuple(t.shape))
+    split[i + 1] = Replicate()
+    return local.redistribute(grouped, tuple(split))
+
+
+def _ungroup(t: torch.Tensor) -> torch.Tensor:
+    """(..., n*hd) on a ``_head_group_mesh`` back on its parent mesh, its
+    columns split over the parent dim as they came: each rank keeps its
+    own columns of its group's (a local slice; the gradient gathers them
+    over "copies").  Anything else as it is."""
+    if not is_dtensor(t) or not hasattr(t.device_mesh, "head_group_parent"):
+        return t
+    from torch.distributed.tensor import Shard
+    parent, i = t.device_mesh.head_group_parent
+    pl = list(t.placements)
+    pl[i + 1] = Shard(t.ndim - 1)
+    local = to_local(t, tuple(pl))
+    del pl[i + 1]
+    return _wrap_local(local, parent, tuple(pl), tuple(t.shape))
+
+
+def _on_mesh(t: torch.Tensor, grouped) -> torch.Tensor:
+    """DTensor (or plain) ``t`` of the parent mesh of ``grouped`` as a
+    DTensor on ``grouped``: the parent dim's placement on both of its
+    dims, the local tensor as it is."""
+    if not is_dtensor(t):
+        return _as_dtensor(t, grouped)
+    if t.device_mesh is grouped:
+        return t
+    i = grouped.head_group_parent[1]
+    pl = list(t.placements)
+    pl[i:i + 1] = [pl[i], pl[i]]
+    return _wrap_local(to_local(t, tuple(t.placements)), grouped, tuple(pl),
+                       tuple(t.shape))
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int, *,
+                group: bool = False) -> torch.Tensor:
     """(..., n*hd) -> (..., n, hd).  A DTensor whose last dim is split
     over more pieces than ``n`` heads divide (2 kv heads on a model dim
     of 4) is gathered on that dim first, as GSPMD reshards the
-    reference's reshape."""
+    reference's reshape; with ``group`` (the q heads of a self- or
+    cross-attention) and a common divisor of the heads and the pieces,
+    only the rank's head group is gathered (``_group_heads``), and the
+    heads are split over the groups as GSPMD splits them."""
+    if group:
+        t = _group_heads(t, n)
     t = _whole_heads(t, n)
     return t.reshape(*t.shape[:-1], n, hd)
 
 
 def merge_heads(o: torch.Tensor) -> torch.Tensor:
-    """(..., n, hd) -> (..., n*hd), ``split_heads``' inverse."""
+    """(..., n, hd) -> (..., n*hd), ``split_heads``' inverse.  Heads split
+    in groups come back to the parent mesh with each rank's columns of
+    its group, the split of the row-parallel ``wo`` after them."""
     n, hd = o.shape[-2:]
-    return o.reshape(*o.shape[:-2], n * hd)
+    return _ungroup(o.reshape(*o.shape[:-2], n * hd))
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of ``table``.  A sharded table is read by
-    ``F.embedding`` (DTensor shards its backward as the table) and the
-    partial rows of a vocab-sharded one are summed at once, so that a
-    remat recompute reads a plain placement; the cotangent coming back
-    is summed first where it is partial (an expert-sharded MoE block
-    leaves it so), since the masked partial's backward takes no other
-    partial.  A plain table is indexed."""
+    """Rows ``ids`` of ``table``, read by ``F.embedding``.  A sharded
+    table's (DTensor shards its backward as the table) partial rows, where
+    the vocab is split, are summed at once, so that a remat recompute
+    reads a plain placement; the cotangent coming back is summed first
+    where it is partial (an expert-sharded MoE block leaves it so), since
+    the masked partial's backward takes no other partial.  A plain table
+    goes through ``F.embedding`` too: indexing's backward (``index_put``
+    with accumulation) sums a repeated id's gradients in another order,
+    and a placed table would then get other bits than a plain one."""
     if is_dtensor(table):
         return _ReducedGrad.apply(reduce_partial(F.embedding(ids, table)))
-    return table[ids]
+    return F.embedding(ids, table)
 
 
 def cache_write(dst: torch.Tensor, index: tuple, value: torch.Tensor
@@ -705,12 +830,20 @@ def _attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and v take the same where their kv heads divide too; where they do
     not (fewer kv heads than ranks, as MQA), k and v are read whole and
     each rank takes the kv heads its q heads use.  Attention mixes
-    neither rows nor heads, so nothing else is exchanged.  Where the q
-    heads do not divide a mesh dim either (whisper's 12 on 16), every
-    rank of it repeats the rank's attention (named in
-    ``hw.cost.CostCounter.replicated``)."""
+    neither rows nor heads, so nothing else is exchanged.  q heads that
+    a mesh dim does not divide come split in groups
+    (``split_heads(group=True)``: whisper's 12 heads on 16 ranks, 4
+    groups of 3) on a ``_head_group_mesh``, k and v are put on that mesh
+    as they are, and each rank runs its group's heads: only the ranks
+    that share a group repeat its attention, as GSPMD splits the
+    reference's heads by their greatest common divisor with the mesh
+    dim.  Where none divides (an odd head count on an even dim), every
+    rank repeats the whole.  Repeats are named in
+    ``hw.cost.CostCounter.replicated``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
+    if hasattr(mesh, "head_group_parent"):
+        k, v = _on_mesh(k, mesh), _on_mesh(v, mesh)
     h, kh = q.shape[2], k.shape[2]
     qp, kp = [], []
     for i, p in enumerate(q.placements):
@@ -827,6 +960,8 @@ def _decode_sharded(q: torch.Tensor, k_cache: torch.Tensor,
     from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = k_cache.device_mesh
+    rows = [is_dtensor(q) and q.placements[i] == Shard(0)
+            for i in range(mesh.ndim)]
     qp, kp, seq_dims = [], [], []
     for i, p in enumerate(k_cache.placements):
         if p in (Shard(0), Shard(2)):
@@ -874,7 +1009,16 @@ def _decode_sharded(q: torch.Tensor, k_cache: torch.Tensor,
         o_sum = packed[:, :hh * d].reshape(b, 1, hh, d)
         l_sum = packed[:, hh * d:].reshape(b, 1, hh, 1)
         o = (o_sum / l_sum).to(ql.dtype)
-    return _wrap_local(o, mesh, qp, (*q.shape[:3], v_cache.shape[3]))
+    o = _wrap_local(o, mesh, qp, (*q.shape[:3], v_cache.shape[3]))
+    # the rows go back to q's split where the cache split them otherwise
+    # (vlm's cross cache carries the batch axis on its sequence and the
+    # model axis on its rows), as the reference splits them: wo then
+    # runs on the rank's rows and its columns, repeated nowhere
+    back = tuple(Shard(0) if r else Replicate() if p == Shard(0) else p
+                 for r, p in zip(rows, o.placements))
+    if not any(rows) or back == tuple(o.placements):
+        return o
+    return o.redistribute(mesh, back)
 
 
 # ---------------------------------------------------------------------------

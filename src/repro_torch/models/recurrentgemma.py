@@ -178,11 +178,14 @@ def _rec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 
 
 def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos: torch.Tensor,
-         sin: torch.Tensor):
+         sin: torch.Tensor, *, group: bool = False):
+    """q, k, v of a block (``group``: q's heads split in groups where the
+    mesh does not divide them, for ``layers.attention``)."""
     dt = x.dtype
     hd = cfg.hd
     h = L.rms_norm(x, lp["norm"])
-    q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"), n, hd)
+    q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"), n, hd,
+                             group=group and w == "wq")
                for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                             ("wv", cfg.n_kv_heads)))
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
@@ -200,7 +203,7 @@ def _attn_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                 self_attn: L.SelfAttention):
     """Returns (x', (k, v)) with k/v as (S,B,K,hd)."""
     x = L.constrain_batch(x, cfg.batch_axes, cfg.seq_axes)
-    q, k, v = _qkv(cfg, lp, x, cos, sin)
+    q, k, v = _qkv(cfg, lp, x, cos, sin, group=True)
     o = self_attn(q, k, v, causal=True, window=cfg.window)
     return _attn_out(cfg, lp, x, o), (k.transpose(0, 1), v.transpose(0, 1))
 

@@ -175,8 +175,8 @@ def _time_mix(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                   for z, w in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
                                (xg, "wg")))
     wl = L.tp_matmul(xw, lp["w_lora_a"].to(dt), "column")
-    wl = L.tp_matmul(torch.tanh(wl.float()), lp["w_lora_b"].float(),
-                     "column")
+    wl = L.tp_matmul(torch.tanh(wl.float()),
+                     L.split_like(lp["w_lora_b"].float(), lp["wr"]), "column")
     logw = -torch.exp(torch.clamp(lp["w0"].float()[None, None] + wl,
                                   -10.0, 4.0))
     w = torch.exp(logw)                                       # decay in (0,1)

@@ -156,7 +156,8 @@ def attention_half(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     h = _norm(cfg, x, lp["attn_norm"])
     if cfg.seq_axes:
         h = L.constrain_batch(h, cfg.batch_axes, ())   # gather into TP
-    q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"), n, hd)
+    q, k, v = (L.split_heads(L.tp_matmul(h, lp[w].to(dt), "column"), n, hd,
+                             group=w == "wq")
                for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                             ("wv", cfg.n_kv_heads)))
     q = L.apply_rope(q, cos, sin)

@@ -103,9 +103,10 @@ def _norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return L.layer_norm(x, scale, None)
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor, n: int, hd: int
-           ) -> torch.Tensor:
-    return L.split_heads(L.tp_matmul(x, w.to(x.dtype), "column"), n, hd)
+def _heads(x: torch.Tensor, w: torch.Tensor, n: int, hd: int, *,
+           group: bool = False) -> torch.Tensor:
+    return L.split_heads(L.tp_matmul(x, w.to(x.dtype), "column"), n, hd,
+                         group=group)
 
 
 def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -115,7 +116,7 @@ def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _self(cfg: ModelConfig, lp: dict, h: torch.Tensor,
           attn: L.SelfAttention, causal: bool):
     """Self-attention of the normed ``h``: (output, k, v)."""
-    q = _heads(h, lp["wq"], cfg.n_heads, cfg.hd)
+    q = _heads(h, lp["wq"], cfg.n_heads, cfg.hd, group=True)
     k = _heads(h, lp["wk"], cfg.n_kv_heads, cfg.hd)
     v = _heads(h, lp["wv"], cfg.n_kv_heads, cfg.hd)
     return _out(attn(q, k, v, causal=causal, window=None), lp["wo"]), k, v
@@ -159,7 +160,8 @@ def _dec_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                     causal=True)
     x = x + o
     cp = lp["cross"]
-    q = _heads(_norm(x, lp["cross_norm"]), cp["wq"], cfg.n_heads, cfg.hd)
+    q = _heads(_norm(x, lp["cross_norm"]), cp["wq"], cfg.n_heads, cfg.hd,
+               group=True)
     xk = _heads(enc, cp["wk"], cfg.n_kv_heads, cfg.hd)
     xv = _heads(enc, cp["wv"], cfg.n_kv_heads, cfg.hd)
     x = x + _out(L.cross_attention(q, xk, xv), cp["wo"])

@@ -9,7 +9,12 @@ Port of ``repro.optim.compression``:
   and dequantizes it.
 
 ``compress`` and ``wire_bytes`` work on nested dicts of tensors and leave
-their inputs as they are.
+their inputs as they are.  A leaf may be a DTensor (a sharded train
+state): each rank then compresses its own slice with the statistic of
+the whole leaf, so every element gets the bits the plain ``compress``
+of the full tensor gives it.  topk's threshold is the k-th largest |g|
+of the ranks' local top-k candidates (their union holds the leaf's top
+k), int8's scale the all-reduced (MAX) local maxima of |g|.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import Params, tree_get, tree_leaves, tree_map
+from repro_torch.models.common import (Params, is_dtensor, tree_get,
+                                       tree_leaves, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +47,62 @@ def _topk_mask(g: torch.Tensor, ratio: float) -> torch.Tensor:
     return (torch.abs(g) >= thresh).to(g.dtype)
 
 
+def _split_groups(g) -> list:
+    """(mesh, mesh dim) of each mesh dim that splits DTensor ``g``: the
+    ranks whose slices differ (a Replicate dim holds copies)."""
+    from torch.distributed.tensor import Shard
+    mesh = g.device_mesh
+    return [(mesh, i) for i, p in enumerate(g.placements)
+            if isinstance(p, Shard) and mesh.size(i) > 1]
+
+
+def _topk_threshold(g, k: int) -> torch.Tensor:
+    """The k-th largest |g| of the whole DTensor ``g``, from each rank's
+    local top-k candidates (padded with -inf where a slice holds fewer,
+    as an uneven split leaves it) gathered over the dims that split it."""
+    from torch.distributed import _functional_collectives as funcol
+    a = torch.abs(g.to_local().reshape(-1))
+    cand = torch.topk(a, min(k, a.numel())).values
+    if cand.numel() < k:
+        cand = torch.cat([cand, cand.new_full((k - cand.numel(),),
+                                              -math.inf)])
+    for group in _split_groups(g):
+        cand = funcol.wait_tensor(funcol.all_gather_tensor(cand, 0, group))
+    return torch.topk(cand, k).values[-1]
+
+
+def _abs_max(g) -> torch.Tensor:
+    """max |g| of the whole DTensor ``g``: the local maxima (0 for an
+    empty slice), all-reduced by MAX over the dims that split it."""
+    from torch.distributed import _functional_collectives as funcol
+    a = torch.abs(g.to_local())
+    m = torch.max(a) if a.numel() else a.new_zeros(())
+    for group in _split_groups(g):
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", group))
+    return m
+
+
+def _compress_placed(cfg: CompressionConfig, gf, dtype
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``compress`` of one DTensor leaf ``gf`` (fp32, error added): the
+    plain math on the local slice, with the whole leaf's threshold or
+    scale; (wire, residual) keep ``gf``'s placements."""
+    from torch.distributed.tensor import DTensor
+    gl = gf.to_local()
+    if cfg.scheme == "topk":
+        k = max(1, int(gf.numel() * cfg.topk_ratio))
+        wire = gl * (torch.abs(gl) >= _topk_threshold(gf, k)).to(gl.dtype)
+    else:
+        scale = torch.clamp(_abs_max(gf), min=1e-12) / 127.0
+        wire = torch.clamp(torch.round(gl / scale), -127, 127) * scale
+
+    def placed(t):
+        return DTensor.from_local(t, gf.device_mesh, gf.placements,
+                                  run_check=False, shape=gf.shape,
+                                  stride=gf.stride())
+    return placed(wire.to(dtype)), placed(gl - wire)
+
+
 @torch.no_grad()
 def compress(cfg: CompressionConfig, grads: Params, error: Params
              ) -> tuple[Params, Params, dict]:
@@ -55,6 +117,8 @@ def compress(cfg: CompressionConfig, grads: Params, error: Params
         gf = g.float()
         if cfg.ef:
             gf = gf + tree_get(error, path)
+        if is_dtensor(gf):
+            return _compress_placed(cfg, gf, g.dtype)
         if cfg.scheme == "topk":
             wire = gf * _topk_mask(gf, cfg.topk_ratio)
         else:

@@ -25,7 +25,11 @@ the loss sum's zero, count as replicated).  With ``batch_axes`` each
 microbatch's batch dim is sharded over those mesh axes.  Every gradient
 is redistributed to its parameter's placements before it is summed and
 before the optimizer (the data-parallel reduce-scatter), so AdamW's
-moments keep the parameters' placements.
+moments keep the parameters' placements.  Compression runs on those
+placed gradients and the "error" state keeps the same placements
+(``state_specs``): each rank compresses its slice with the whole leaf's
+threshold or scale (``optim.compression``), as the reference compresses
+its global leaves.
 """
 
 from __future__ import annotations
@@ -176,9 +180,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 raise ValueError("make_train_step: batch_axes needs a "
                                  "state placed on a mesh (DTensors)")
             return _step(state, batch, None)
-        if "error" in state:
-            raise NotImplementedError(
-                "make_train_step: gradient compression on a sharded state")
         from torch.distributed.tensor.experimental import \
             implicit_replication
         with implicit_replication():
@@ -265,10 +266,13 @@ def _serving(cfg: ModelConfig, params: Params, batch: dict):
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int,
-                      cache_shardings: dict | None = None):
+                      cache_shardings: dict | None = None, *,
+                      placed_logits: bool = False):
     """(params, batch) -> (last-token logits, cache).  On DTensor params
     the prompt's rows are sharded over ``cfg.batch_axes``, the logits come
-    back whole (a plain tensor) and, with ``cache_shardings`` (from
+    back whole (a plain tensor; with ``placed_logits`` as placed, as the
+    reference's jitted step leaves them: the dry-run counts the step so)
+    and, with ``cache_shardings`` (from
     ``serving.kvcache.cache_shardings``), the cache is placed on them."""
     @torch.no_grad()
     def prefill_step(params: dict, batch: dict):
@@ -278,19 +282,20 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
             if cache_shardings is not None:
                 from repro_torch.sharding import place_cache
                 cache = place_cache(cache, cache_shardings)
-        return _plain(logits), cache
+        return (logits if placed_logits else _plain(logits)), cache
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, placed_logits: bool = False):
     """One decode step: (params, cache, token, pos) -> (logits, cache).
     On DTensor params and a placed cache each rank writes its slice of
-    the new token's state in place; the logits come back whole."""
+    the new token's state in place; the logits come back whole (with
+    ``placed_logits`` as placed, as ``make_prefill_step``)."""
     @torch.no_grad()
     def serve_step(params: dict, cache: dict, token, pos):
         ctx, batch = _serving(cfg, params, {"token": token})
         with ctx:
             logits, cache = zoo.decode_step(cfg, params, cache,
                                             batch["token"], pos)
-        return _plain(logits), cache
+        return (logits if placed_logits else _plain(logits)), cache
     return serve_step

@@ -369,10 +369,14 @@ from repro.configs import SHAPES, get_config
 from repro.launch.dryrun import measure_cell
 from repro.launch.mesh import make_mesh
 cfg = dataclasses.replace(get_config("olmo-1b", smoke=True), dtype="bfloat16")
-rec = measure_cell(cfg, SHAPES["train_4k"].scaled(seq=128, batch=8),
-                   make_mesh((2, 4), ("data", "model")), mesh_name="single")
+mesh = make_mesh((2, 4), ("data", "model"))
+rec = measure_cell(cfg, SHAPES["train_4k"].scaled(seq=128, batch=8), mesh,
+                   mesh_name="single")
+dec = measure_cell(cfg, SHAPES["decode_32k"].scaled(seq=128, batch=8), mesh,
+                   mesh_name="single")
 print(json.dumps({"collectives": rec["collectives"],
-                  "flops_per_device": rec["flops_per_device"]}))
+                  "flops_per_device": rec["flops_per_device"],
+                  "decode_collectives": dec["collectives"]}))
 """
 # the port's count of the cell when DTensor chose each op's placement
 # (PERF.md, the mesh dry-run's findings): link bytes a step and flops a
@@ -394,26 +398,51 @@ def ref_tiny_cell():
 
 
 def test_tiny_cell_against_the_reference(world, ref_tiny_cell):
-    """The reference's tiny cell beside the port's count of it: with
-    every GEMM placed as the plan places it, the port moves at most half
-    the link bytes a step it moved when DTensor chose (15,684,658) and
-    does fewer flops a device (3.870e8); each collective kind it counts
-    is one the reference's HLO has, or the reduce-scatter of the FSDP
-    weight gradients (the reference all-reduces its partial sums).  Both
-    records go to ``PERF.md``."""
+    """The reference's tiny cell beside the port's count of it (ROADMAP
+    Faults item 16), train and decode.  Both records go to ``PERF.md``.
+
+    Train: with every GEMM placed as the plan places it, the port moves
+    at most half the link bytes a step it moved when DTensor chose
+    (15,684,658) and does fewer flops a device (3.870e8); each collective
+    kind it counts is one the reference's HLO has, or the reduce-scatter
+    of the FSDP weight gradients (the backward of ``tp_matmul``'s weight
+    gather, the sum the reference's all-reduce computes, in fewer link
+    bytes); its all-reduces and reduce-scatters together move no more
+    link bytes than the reference's all-reduces; as many all-gathers
+    (FSDP's weight gathers).
+
+    Decode: as many all-gathers as the reference (14: the FSDP weights
+    of each layer's projections; where the reference gathers the rows of
+    wo's and w_down's input, the port gathers those weights) and no more
+    link bytes a step.  The two more that the port counted were the
+    logits gathered whole for the caller, which the reference's step
+    leaves placed; the dry-run counts the step with them placed."""
     cfg = dataclasses.replace(get_config("olmo-1b", smoke=True),
                               dtype="bfloat16")
+    mesh = _mesh((2, 4), ("data", "model"))
     rec = dryrun.measure_cell(cfg, SHAPES["train_4k"].scaled(seq=128, batch=8),
-                              _mesh((2, 4), ("data", "model")),
-                              mesh_name="single")
+                              mesh, mesh_name="single")
     mine, ref = rec["collectives"], ref_tiny_cell["collectives"]
     assert ref["ici_link_bytes_step"] == 2_712_566
     assert mine["ici_link_bytes_step"] <= TINY_CELL_BEFORE[0] / 2, mine
     assert rec["flops_per_device"] < TINY_CELL_BEFORE[1], rec
     assert set(mine["by_kind"]) <= set(ref["by_kind"]) | {"reduce-scatter"}
+    assert mine["by_kind"]["reduce-scatter"]["count"] > 0
+    reduced = sum(mine["by_kind"][k]["link_bytes"]
+                  for k in ("all-reduce", "reduce-scatter"))
+    assert reduced <= ref["by_kind"]["all-reduce"]["link_bytes"], mine
     # FSDP's weight gathers: as many as the reference's
     assert mine["by_kind"]["all-gather"]["count"] == \
         ref["by_kind"]["all-gather"]["count"]
+
+    dec = dryrun.measure_cell(
+        cfg, SHAPES["decode_32k"].scaled(seq=128, batch=8), mesh,
+        mesh_name="single")["collectives"]
+    ref_dec = ref_tiny_cell["decode_collectives"]
+    assert ref_dec["by_kind"]["all-gather"]["count"] == 14
+    assert dec["by_kind"]["all-gather"]["count"] == 14, dec
+    assert dec["ici_link_bytes_step"] <= ref_dec["ici_link_bytes_step"], dec
+    assert set(dec["by_kind"]) <= set(ref_dec["by_kind"]), dec
 
 
 def test_pod_cell_reduces_gradients_across_the_pod_axis(world):

@@ -30,10 +30,28 @@ Every test reads its part of the one report, so each case counts:
     (2, 2), and GQA with one q head a rank (4 q heads on 2 kv heads on
     (1, 4)): within 1e-5 of the unsharded port's step and the
     reference's;
+(c'') q heads that the model axis does not divide, split in head groups
+    as GSPMD splits them (gcd of the heads and the axis): 6 heads and 10
+    q heads on 2 kv heads, each on (1, 4) (two groups, each on 2
+    ranks), within 1e-5 of the unsharded port's step and the
+    reference's;
 (d) the elastic checkpoint: saved on a (4,) mesh, restored onto (2, 2),
     and the step's sharded state saved from (2, 2) and restored
-    replicated onto (4,): arrays equal;
-(e) this process has no process group afterwards.
+    replicated onto (4,): arrays equal; a compressed step's sharded
+    state, "error" included, saved and restored onto its own placements
+    by ``restore(shardings=...)``: arrays and placements equal;
+(e) this process has no process group afterwards;
+(i) gradient compression on a sharded state: topk and int8 steps on
+    (2, 2) and (1, 4) against the unsharded port's and the reference's
+    ``make_train_step`` with the same ``CompressionConfig`` (loss, grad
+    norm and every parameter at the sharded-step tolerance; the "error"
+    state on its parameter's placements, equal to the unsharded
+    port's within 1e-5 of its largest |value| but where a gap of about
+    1e-7 in a gradient moves an element across a rounding or threshold
+    boundary: those elements are counted and kept under 0.2 %); and
+    ``compress`` of placed gradients (Shard(0), Shard(1), uneven on
+    both mesh dims, Replicate, and a leaf of ties at the threshold) bit
+    for bit with the plain ``compress`` of the full tensors.
 """
 
 import dataclasses
@@ -54,6 +72,8 @@ import torch.distributed as dist
 from repro.configs import get_config as jax_get_config
 from repro.models import zoo as jax_zoo
 from repro.optim import AdamWConfig as JaxAdamWConfig
+from repro.optim import CompressionConfig as JaxCompressionConfig
+from repro.optim import init_error_state as jax_init_error_state
 from repro.optim import init_opt_state as jax_init_opt_state
 from repro.train import TrainConfig as JaxTrainConfig
 from repro.train import make_train_step as jax_make_train_step
@@ -61,13 +81,26 @@ from repro.train import make_train_step as jax_make_train_step
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 RANKS = 4
-TIMEOUT_S = 300
+# the ranks' wall time: about 170 s alone on a CPU; beside five other
+# test workers (the tier-1 run) it took more than 300 s
+TIMEOUT_S = 600
 B, S, MICRO = 8, 16, 2
 LR, EPS = 1e-3, 1e-3
 # (c') one head a rank: mesh, n_heads, n_kv_heads
 HEAD_CASES = {"one-head-1x2": ([1, 2], 2, 2), "one-head-2x2": ([2, 2], 2, 2),
               "gqa-one-head-1x4": ([1, 4], 4, 2)}
-STEP_CASES = ("fp32", "bf16", "seq", *HEAD_CASES)
+# (c'') q heads in groups: mesh, n_heads, n_kv_heads
+GROUP_CASES = {"six-heads-1x4": ([1, 4], 6, 6),
+               "ten-on-two-heads-1x4": ([1, 4], 10, 2)}
+STEP_CASES = ("fp32", "bf16", "seq", *HEAD_CASES, *GROUP_CASES)
+# (i) compressed steps: mesh, scheme
+COMPRESSED_CASES = {"topk-2x2": ([2, 2], "topk"), "int8-2x2": ([2, 2], "int8"),
+                    "topk-1x4": ([1, 4], "topk"), "int8-1x4": ([1, 4], "int8")}
+TOPK_RATIO = 0.05
+PLACED_SCHEMES = {"topk-0.01": ("topk", 0.01), "topk-0.3": ("topk", 0.3),
+                  "int8": ("int8", 0.01)}
+# elements of an "error" leaf allowed across a boundary
+FLIP_SHARE = 2e-3
 # (f) the other families' train steps: arch, plan rules, config fields
 TRAIN_CASES = {
     "mixtral-expert": ("mixtral-8x7b", {}, {}),
@@ -273,6 +306,97 @@ report["elastic"]["state_equal"] = all(
                  + ["opt/step"]))
 report["timings"]["elastic"] = time.perf_counter() - t1
 
+# (i) compression on placed gradients, then compressed sharded steps
+from repro_torch.optim import CompressionConfig, compress, init_error_state
+t1 = time.perf_counter()
+g = torch.Generator().manual_seed(5)
+grads = {"shard0": torch.randn(10, 12, generator=g),
+         "shard1": torch.randn(12, 10, generator=g),
+         "uneven": torch.randn(7, 5, generator=g),
+         "replicate": torch.randn(6, 4, generator=g),
+         "ties": torch.randint(-3, 4, (8, 8), generator=g).float()}
+errors = {k: 0.1 * torch.randn(v.shape, generator=g)
+          for k, v in grads.items()}
+placed_at = {"shard0": (Shard(0), Replicate()),
+             "shard1": (Replicate(), Shard(1)),
+             "uneven": (Shard(0), Shard(1)),
+             "replicate": (Replicate(), Replicate()),
+             "ties": (Shard(1), Shard(0))}
+report["placed_compress"] = {}
+cases = json.loads(sys.argv[4])
+for name, (scheme, ratio) in cases["placed"].items():
+    ccfg = CompressionConfig(scheme=scheme, topk_ratio=ratio)
+    wire, err, _ = compress(ccfg, grads, errors)
+    pwire, perr, _ = compress(
+        ccfg, {k: distribute_tensor(v, mesh, placed_at[k], src_data_rank=None)
+               for k, v in grads.items()},
+        {k: distribute_tensor(v, mesh, placed_at[k], src_data_rank=None)
+         for k, v in errors.items()})
+    report["placed_compress"][name] = {
+        k: {"wire": bool(torch.equal(pwire[k].full_tensor(), wire[k])),
+            "error": bool(torch.equal(perr[k].full_tensor(), err[k])),
+            "placements": [list(pwire[k].placements) == list(placed_at[k]),
+                           list(perr[k].placements) == list(placed_at[k])]}
+        for k in grads}
+
+report["compressed"] = {}
+cstate = {**state, "error": init_error_state(params)}
+
+
+def compressed(scheme):
+    return dataclasses.replace(tcfg, compression=CompressionConfig(
+        scheme=scheme, topk_ratio=float(sys.argv[5])))
+
+
+for name, (shape, scheme) in cases["compressed"].items():
+    cmesh = make_mesh(tuple(shape), ("data", "model"), device_type="cpu")
+    cfg = dataclasses.replace(smoke, batch_axes=("data",))
+    csh = named_sharding_tree(plan, cmesh,
+                              state_specs(cfg, compressed(scheme)))
+    st = distribute_tree(cstate, csh)
+    new_s, m_s = make_train_step(cfg, compressed(scheme),
+                                 batch_axes=("data",))(st, batch)
+    kept = all(str(tree_get(new_s, f"{part}/{p}").placements)
+               == str(tree_get(st, f"params/{p}").placements)
+               for p in flat for part in ("params", "error"))
+    full_s = full(new_s)
+    if rank == 0:
+        np.savez(os.path.join(out, f"compressed_{name}.npz"),
+                 **{f"{part}/{p}": tree_get(full_s, f"{part}/{p}").numpy()
+                    for p in flat for part in ("params", "error")})
+    rep = {"loss": float(m_s["loss"]), "grad_norm": float(m_s["grad_norm"]),
+           "ratio": m_s["compression_ratio"],
+           "metrics_plain": not any(isinstance(v, DTensor)
+                                    for v in m_s.values()),
+           "placements_kept": kept}
+    if name == "topk-2x2":
+        # the state with "error" through a checkpoint and back onto its
+        # own placements
+        mgr3 = CheckpointManager(os.path.join(out, "ck_compressed"))
+        mgr3.save(1, new_s, block=True)
+        back, _, _ = mgr3.restore(shardings=csh)
+        rep["restored"] = all(
+            torch.equal(tree_get(back, p).full_tensor(),
+                        tree_get(full_s, p))
+            and str(tree_get(back, p).placements)
+            == str(tree_get(new_s, p).placements)
+            for p in [f"{part}/{q}" for q in flat
+                      for part in ("params", "error", "opt/mu", "opt/nu")])
+    report["compressed"][name] = rep
+# the unsharded compressed steps, one a scheme, on rank 0 alone
+report["compressed_unsharded"] = {}
+if rank == 0:
+    ucfg = dataclasses.replace(smoke, batch_axes=())
+    for scheme in sorted({s for _, s in cases["compressed"].values()}):
+        new_u, m_u = make_train_step(ucfg, compressed(scheme))(cstate, batch)
+        np.savez(os.path.join(out, f"compressed_unsharded_{scheme}.npz"),
+                 **{f"{part}/{p}": tree_get(new_u, f"{part}/{p}").numpy()
+                    for p in flat for part in ("params", "error")})
+        report["compressed_unsharded"][scheme] = {
+            "loss": float(m_u["loss"]), "grad_norm": float(m_u["grad_norm"]),
+            "ratio": m_u["compression_ratio"]}
+report["timings"]["compressed"] = time.perf_counter() - t1
+
 # (f), (g), (h): the other families
 from torch.distributed.tensor.debug import CommDebugMode
 from repro_torch.hw.cost import CostCounter
@@ -330,10 +454,18 @@ report["attention_groups"] = {
     "err": float((got.full_tensor() - want).abs().max()),
     "placements": str(got.placements)}
 
-# (c') one head a rank
+# (c') one head a rank, (c'') head groups: the groups each step makes
 t_heads = time.perf_counter()
 layers.constrain_batch = spy
-for name, (shape, nh, nkv) in cases["heads"].items():
+groups_made = []
+_group_mesh = layers._head_group_mesh
+
+def group_spy(mesh, dim, groups):
+    groups_made.append(str((dim, groups)))
+    return _group_mesh(mesh, dim, groups)
+
+layers._head_group_mesh = group_spy
+for name, (shape, nh, nkv) in {**cases["heads"], **cases["groups"]}.items():
     t1 = time.perf_counter()
     hparams, hbatch = family_inputs(f"heads-{nh}-{nkv}")
     if shape[0] * shape[1] < dist.get_world_size():
@@ -351,6 +483,7 @@ for name, (shape, nh, nkv) in cases["heads"].items():
     st = distribute_tree(hstate, named_sharding_tree(
         default_plan(), hmesh, state_specs(cfg, tcfg)))
     pinned.clear()
+    groups_made.clear()
     new_s, m_s = make_train_step(cfg, tcfg, batch_axes=("data",))(st, hbatch)
     paths = tree_leaves_paths(hparams)
     kept = all(str(tree_get(t, p).placements)
@@ -373,8 +506,10 @@ for name, (shape, nh, nkv) in cases["heads"].items():
         "placements_kept": kept, "pinned": sorted(set(pinned)),
         "heads_a_rank": tree_get(st["params"], "layers/wq").to_local()
         .shape[-1] // cfg.hd,
+        "head_groups": sorted(set(groups_made)),
         "seconds": time.perf_counter() - t1}
 layers.constrain_batch = _constrain
+layers._head_group_mesh = _group_mesh
 report["timings"]["one_head"] = time.perf_counter() - t_heads
 
 report["family_step"] = {}
@@ -564,18 +699,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _jax_step(cfg, jparams, batch):
+def _jax_step(cfg, jparams, batch, compression=None):
     tcfg = JaxTrainConfig(microbatches=MICRO, optimizer=JaxAdamWConfig(
-        lr=LR, eps=EPS, total_steps=10))
+        lr=LR, eps=EPS, total_steps=10),
+        compression=compression or JaxCompressionConfig())
     state = {"params": jparams,
              "opt": jax_init_opt_state(tcfg.optimizer, jparams)}
+    if compression is not None:
+        state["error"] = jax_init_error_state(jparams)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     step = jax.jit(jax_make_train_step(cfg, tcfg)).lower(
         state, jb).compile(compiler_options=_XLA_OPTS)
     new, metrics = step(state, jb)
-    return ({p: np.asarray(a, dtype=np.float32)
-             for p, a in _flat(new["params"]).items()},
-            float(metrics["loss"]), float(metrics["grad_norm"]))
+    out = ({p: np.asarray(a, dtype=np.float32)
+            for p, a in _flat(new["params"]).items()},
+           float(metrics["loss"]), float(metrics["grad_norm"]))
+    if compression is None:
+        return out
+    return (*out, {p: np.asarray(a) for p, a in _flat(new["error"]).items()})
 
 
 @pytest.fixture(scope="module")
@@ -615,7 +756,7 @@ def run(tmp_path_factory):
         fam_params[arch], fam_batch[arch] = flat, fb
     # (c') the one-head configs' params, the olmo batch
     head_cfgs = {}
-    for _, nh, nkv in HEAD_CASES.values():
+    for _, nh, nkv in (*HEAD_CASES.values(), *GROUP_CASES.values()):
         hcfg = dataclasses.replace(cfg, n_heads=nh, n_kv_heads=nkv)
         hflat = {p: np.asarray(a) for p, a in
                  _flat(jax_zoo.init(hcfg, jax.random.PRNGKey(0))).items()}
@@ -623,14 +764,17 @@ def run(tmp_path_factory):
                  **{f"params/{p}": a for p, a in hflat.items()})
         head_cfgs[(nh, nkv)] = (hcfg, hflat)
     cases = json.dumps({"train": TRAIN_CASES, "serve": SERVE_CASES,
-                        "heads": HEAD_CASES})
+                        "heads": HEAD_CASES, "groups": GROUP_CASES,
+                        "compressed": COMPRESSED_CASES,
+                        "placed": PLACED_SCHEMES})
 
     env = {**os.environ, "PYTHONPATH": SRC, "MASTER_ADDR": "localhost",
            "MASTER_PORT": str(_free_port()), "WORLD_SIZE": str(RANKS),
            "OMP_NUM_THREADS": "1"}
     code = textwrap.dedent(WORKER)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(out), repr(LR), repr(EPS), cases],
+        [sys.executable, "-c", code, str(out), repr(LR), repr(EPS), cases,
+         repr(TOPK_RATIO)],
         env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         stdin=subprocess.DEVNULL) for r in range(RANKS)]
@@ -648,8 +792,12 @@ def run(tmp_path_factory):
                                  jparams, batch)}
         head_ref = {key: _jax_step(hcfg, _nest(hflat), batch)
                     for key, (hcfg, hflat) in head_cfgs.items()}
-        for name, (_, nh, nkv) in HEAD_CASES.items():
+        for name, (_, nh, nkv) in {**HEAD_CASES, **GROUP_CASES}.items():
             ref[name] = head_ref[(nh, nkv)]
+        compressed_ref = {
+            scheme: _jax_step(cfg, jparams, batch, JaxCompressionConfig(
+                scheme=scheme, topk_ratio=TOPK_RATIO))
+            for scheme in sorted({s for _, s in COMPRESSED_CASES.values()})}
         fam_ref = {arch: _jax_step(jax_get_config(arch, smoke=True),
                                    _nest(fam_params[arch]), fam_batch[arch])
                    for arch in sorted({a for a, _, _ in
@@ -672,6 +820,7 @@ def run(tmp_path_factory):
     report["seconds"] = time.perf_counter() - t0
     index = json.loads(jax_out[0].splitlines()[-1])
     return {"report": report, "out": out, "ref": ref, "family_ref": fam_ref,
+            "compressed_ref": compressed_ref,
             "index": index["params"], "cache_index": index["caches"],
             "params": {p: np.asarray(a) for p, a in _flat(jparams).items()}}
 
@@ -700,10 +849,14 @@ def test_default_plan_slices_match_reference_index_map(run):
 def test_sharded_step_matches_unsharded_and_reference(run, case):
     rep = run["report"]["step"][case]
     ref_params, ref_loss, ref_norm = run["ref"][
-        case if case in HEAD_CASES else "bf16" if case == "bf16" else "fp32"]
+        case if case in HEAD_CASES or case in GROUP_CASES
+        else "bf16" if case == "bf16" else "fp32"]
     if case in HEAD_CASES:
         # one q head a rank, as the case's name says
         assert rep["heads_a_rank"] == 1, rep
+    if case in GROUP_CASES:
+        # "model" (mesh dim 1) unflattened into 2 head groups of 2 ranks
+        assert rep["head_groups"] == ["(1, 2)"], rep
     assert rep["metrics_plain"]
     assert rep["placements_kept"], "params or moments lost their placement"
     # the residual stream pinned to the batch over "data", and with
@@ -858,3 +1011,68 @@ def test_collectives_are_recorded_per_family(run):
 
 def test_main_process_has_no_process_group(run):
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("case", sorted(COMPRESSED_CASES))
+def test_compressed_step_matches_unsharded_and_reference(run, case):
+    """(i) A compressed step on a sharded state against the unsharded
+    port's compressed step and the reference's: loss and grad norm
+    within the sharded-step tolerance, the parameters and "error" on
+    their placements, ``compression_ratio`` the reference's.  A gap of
+    the order of 1e-7 in a gradient (another summation order) can move
+    an element across an int8 rounding boundary or the top-k threshold:
+    its wire value then differs by a quantum, or by the whole element,
+    and so do its "error" and its AdamW update.  Such elements, found
+    where the "error" leaves differ by more than 1e-5 of the compressed
+    gradient's largest |value| (for int8 at least 254 x the error's, an
+    int8 residual being at most half a quantum, max|g| / 254), are at
+    most ``FLIP_SHARE`` of a leaf, and their parameters differ by at
+    most 2 lr; every other element of every parameter and "error" leaf
+    is within the tolerance (1e-5 of the leaf's largest |value|)."""
+    rep = run["report"]["compressed"][case]
+    scheme = COMPRESSED_CASES[case][1]
+    plain = run["report"]["compressed_unsharded"][scheme]
+    ref_params, ref_loss, ref_norm, ref_error = \
+        run["compressed_ref"][scheme]
+    assert rep["metrics_plain"] and rep["placements_kept"], rep
+    want = TOPK_RATIO if scheme == "topk" else 0.25
+    assert rep["ratio"] == plain["ratio"] == want, (rep, plain)
+    assert abs(rep["loss"] - plain["loss"]) <= 1e-5, (rep, plain)
+    assert abs(rep["loss"] - ref_loss) <= 1e-5, (rep, ref_loss)
+    assert abs(rep["grad_norm"] - ref_norm) <= 1e-5 * ref_norm, rep
+    new = np.load(run["out"] / f"compressed_{case}.npz")
+    unsharded = np.load(run["out"] / f"compressed_unsharded_{scheme}.npz")
+    for path, want_p in ref_params.items():
+        got, got_e = new[f"params/{path}"], new[f"error/{path}"]
+        scale = float(np.max(np.abs(want_p)))
+        for other, other_e in ((want_p, ref_error[path]),
+                               (unsharded[f"params/{path}"],
+                                unsharded[f"error/{path}"])):
+            scale_e = max(float(np.max(np.abs(other_e))), 1e-30) * (
+                254 if scheme == "int8" else 1)
+            flipped = np.abs(got_e - other_e) > 1e-5 * scale_e
+            assert flipped.sum() <= FLIP_SHARE * flipped.size, \
+                (case, path, int(flipped.sum()))
+            gap = np.abs(got - other)
+            assert gap[~flipped].max(initial=0.0) <= 1e-5 * scale, \
+                (case, path, float(gap[~flipped].max()), scale)
+            assert gap[flipped].max(initial=0.0) <= 2 * LR, (case, path)
+
+
+@pytest.mark.parametrize("scheme", sorted(PLACED_SCHEMES))
+def test_placed_compress_equals_plain_bit_for_bit(run, scheme):
+    """(i) ``compress`` of placed gradients and errors: the wire and the
+    new error of every leaf, gathered, equal the plain ``compress`` of
+    the full tensors bit for bit, on the leaf's placements."""
+    rep = run["report"]["placed_compress"][scheme]
+    assert sorted(rep) == ["replicate", "shard0", "shard1", "ties",
+                           "uneven"]
+    for leaf, r in rep.items():
+        assert r == {"wire": True, "error": True,
+                     "placements": [True, True]}, (scheme, leaf, r)
+
+
+def test_compressed_state_restores_onto_its_placements(run):
+    """(d) The compressed (2, 2) step's state, "error" included, through
+    ``CheckpointManager.save`` and ``restore(shardings=...)``."""
+    assert run["report"]["compressed"]["topk-2x2"]["restored"]
